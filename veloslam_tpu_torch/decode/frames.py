@@ -1,0 +1,171 @@
+"""Gather-based frame sampling — the bulk-odometry fast path.
+
+Port of `SampleCarry`, `SampledFrames` and `sample_frames` from
+veloslam_tpu/decode/frames.py.  Decode output is frame-contiguous (firing
+blocks in time order), so a frame is a block range of the (N*12, 32)
+decode array plus the open-frame carry.  Per frame, the `points_per_frame`
+valid points with the smallest 16-bit multiplicative hash of their
+assembled flat index (laser·max_firings + firing position) are selected
+with one stable (slot | hash) key sort and a rank gather.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from veloslam_tpu_torch import constants as C
+from veloslam_tpu_torch.core.segment import segment_min, take
+from veloslam_tpu_torch.decode.decode import DecodedBatch, frame_break_flags
+
+_HASH_MUL = 2654435761      # Fibonacci hashing constant (uint32)
+
+
+class SampleCarry(NamedTuple):
+    """Open-frame compensated blocks carried between batches,
+    RIGHT-ALIGNED: occupied rows are [Fc - n_blocks, Fc)."""
+
+    xyz: torch.Tensor           # (Fc, 32, 3) float32, world frame
+    valid: torch.Tensor         # (Fc, 32) bool
+    laser: torch.Tensor         # (Fc, 32) int32 — output beam row (hash key)
+    n_blocks: torch.Tensor      # () int32
+    last_azimuth: torch.Tensor  # () int32
+
+    @staticmethod
+    def init(max_firings: int = C.MAX_FIRINGS_PER_FRAME, *,
+             device) -> "SampleCarry":
+        F, L = max_firings, C.HDL_LASERS_PER_FIRING
+        return SampleCarry(
+            xyz=torch.zeros((F, L, 3), dtype=torch.float32, device=device),
+            valid=torch.zeros((F, L), dtype=torch.bool, device=device),
+            laser=torch.zeros((F, L), dtype=torch.int32, device=device),
+            n_blocks=torch.zeros((), dtype=torch.int32, device=device),
+            last_azimuth=torch.full((), -1, dtype=torch.int32,
+                                    device=device))
+
+
+class SampledFrames(NamedTuple):
+    """Per-slot sampled points (leading axis = frame slot)."""
+
+    xyz: torch.Tensor      # (S, P, 3) float32 — world frame (compensated)
+    mask: torch.Tensor     # (S, P) bool
+
+
+def hash16(flat: torch.Tensor) -> torch.Tensor:
+    """16-bit multiplicative hash of non-negative int32 indices:
+    (flat · 2654435761 mod 2³²) >> 16, computed in int64 because torch has
+    no uint32 shifts on the CPU."""
+    return (((flat.long() * _HASH_MUL) & 0xFFFFFFFF) >> 16).to(torch.int32)
+
+
+def sample_frames(decoded: DecodedBatch, xyz_world: torch.Tensor,
+                  pkt_rel_s: torch.Tensor, carry: SampleCarry,
+                  carry_start_rel_s: torch.Tensor, *, model: str,
+                  max_frames: int, points_per_frame: int,
+                  max_firings: int = C.MAX_FIRINGS_PER_FRAME
+                  ) -> Tuple[SampledFrames, torch.Tensor, torch.Tensor,
+                             SampleCarry, torch.Tensor]:
+    """Segment the batch into frames and select `points_per_frame` points
+    per completed frame.
+
+    Returns (frames, n_completed () int32, start_rel_s (S,), new carry,
+    open_start_rel_s ()).  Output points are ordered by ascending hash, so
+    any prefix of the P axis is itself a uniform subsample.  Frames longer
+    than `max_firings` positions contribute only their first positions;
+    the carry keeps the open frame's newest `max_firings` blocks.
+    """
+    lasers = C.HDL_LASERS_PER_FIRING
+    N = decoded.xyz.shape[0]
+    B = N * C.HDL_FIRINGS_PER_PACKET
+    Fc, S = max_firings, max_frames
+    P = points_per_frame
+    ppb = 2 if model == "vlp16" else 1
+    dev = xyz_world.device
+    i32 = torch.int32
+
+    breaks, last_az = frame_break_flags(decoded.az_ticks, carry.last_azimuth)
+    fid = torch.cumsum(breaks.to(i32), 0, dtype=i32)          # (B,)
+    n_frames = fid[-1] + 1
+    n_completed = torch.clamp(n_frames - 1, max=S)
+    fid_c = torch.clamp(fid, max=S + 1)
+
+    row = torch.arange(B, dtype=i32, device=dev) + Fc          # block units
+    seg_first = segment_min(row, fid_c, S + 2)
+    # Frame 0 may extend back into the carry (and may be carry-only when
+    # the batch's first block opens a new frame).  The JAX original also
+    # builds each segment's last row, which nothing reads.
+    has_carry = carry.n_blocks > 0
+    first0 = Fc - torch.clamp(carry.n_blocks, max=Fc)
+    seg_first[0] = torch.where(has_carry, first0, seg_first[0])
+
+    rel_block = pkt_rel_s.repeat_interleave(C.HDL_FIRINGS_PER_PACKET) + \
+        decoded.dt_s[:, :, 0].reshape(-1)                       # (B,)
+    seg_start = segment_min(rel_block, fid_c, S + 2)
+    seg_start[0] = torch.where(has_carry, carry_start_rel_s, seg_start[0])
+
+    # --- per-point hash keys over the CONCAT (carry ++ batch) order --------
+    blk_in_frame = row - seg_first[fid_c.long()]
+    if model == "hdl64":
+        pos_b = torch.div(blk_in_frame, 2, rounding_mode="floor")
+    else:
+        pos_b = blk_in_frame
+    pos_pt = pos_b[:, None] * ppb + decoded.subfiring.reshape(B, lasers)
+    # Beam rows go to 63 on HDL-64; the hash key only needs distinctness.
+    las_b = torch.clamp(decoded.laser_id.reshape(B, lasers), 0, 63)
+    ok_b = decoded.valid.reshape(B, lasers) & (pos_pt < Fc)
+
+    # Carry points: frame 0, position = row − first0 (block units).
+    cpos_b = torch.arange(Fc, dtype=i32, device=dev) - first0
+    if model == "hdl64":
+        cpos_b = torch.div(cpos_b, 2, rounding_mode="floor")
+    dsr = torch.arange(lasers, dtype=i32, device=dev)
+    csub = (torch.div(dsr, 16, rounding_mode="floor") if model == "vlp16"
+            else torch.zeros_like(dsr))[None, :]
+    cpos_pt = cpos_b[:, None] * ppb + csub
+    ok_c = carry.valid & (cpos_pt >= 0) & (cpos_pt < Fc)
+
+    flat_c = carry.laser * Fc + torch.clamp(cpos_pt, 0, Fc - 1)
+    flat_b = las_b * Fc + torch.clamp(pos_pt, 0, Fc - 1)
+    slot_b = fid_c[:, None].expand(B, lasers)
+    flat = torch.cat([flat_c.reshape(-1), flat_b.reshape(-1)])
+    slot = torch.cat([torch.zeros(Fc * lasers, dtype=i32, device=dev),
+                      slot_b.reshape(-1)])
+    ok = torch.cat([ok_c.reshape(-1), ok_b.reshape(-1)])
+    # Sort key: (slot | hash); invalid points sort last (slot sentinel).
+    key = torch.where(ok, (torch.clamp(slot, max=S + 1) << 16) | hash16(flat),
+                      (S + 2) << 16)
+    Ncat = (Fc + B) * lasers
+    skeys, order = torch.sort(key, stable=True)
+
+    # Slot boundaries in the sorted key space.
+    slot_starts = torch.searchsorted(
+        skeys, torch.arange(S + 1, dtype=i32, device=dev) << 16,
+        out_int32=True)
+    counts = slot_starts[1:] - slot_starts[:-1]                 # (S,)
+    slot_done = torch.arange(S, device=dev) < n_completed
+    r = torch.arange(P, dtype=i32, device=dev)
+    take_idx = slot_starts[:S, None] + r[None, :]               # (S, P)
+    sel_ok = (r[None, :] < torch.clamp(counts[:, None], max=P)) \
+        & slot_done[:, None]
+    pick = order[torch.clamp(take_idx, 0, Ncat - 1).long()]     # (S, P)
+
+    cat_xyz = torch.cat([carry.xyz.reshape(Fc * lasers, 3),
+                         xyz_world.reshape(B * lasers, 3)])
+    frames = SampledFrames(xyz=cat_xyz[pick], mask=sel_ok)
+
+    # New carry: the open frame's BLOCKS, right-aligned into (Fc,) buffers.
+    open_id = torch.clamp(n_frames - 1, max=S + 1)
+    open_first_blk = torch.clamp(take(seg_first, open_id), min=B)
+    cat_valid_blk = torch.cat([carry.valid,
+                               decoded.valid.reshape(B, lasers)])
+    cat_laser_blk = torch.cat([carry.laser, las_b])
+    keep = (torch.arange(Fc, dtype=i32, device=dev) + B) >= open_first_blk
+    new_carry = SampleCarry(
+        xyz=cat_xyz.reshape(Fc + B, lasers, 3)[B:].clone(),
+        valid=cat_valid_blk[B:] & keep[:, None],
+        laser=cat_laser_blk[B:].clone(),
+        n_blocks=(Fc + B) - open_first_blk,
+        last_azimuth=last_az)
+    open_start = take(seg_start, open_id)
+    return frames, n_completed, seg_start[:S], new_carry, open_start
