@@ -1,25 +1,40 @@
-"""Drive the PyTorch port's bulk-odometry main path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card: bulk
+odometry, and device full SLAM with its end-of-stream finalize.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases, one printed line each; any failure raises and the exit code is
-non-zero:
+Phases, one printed line each (or more); any failure raises and the exit
+code is non-zero:
   1. device   — require CUDA; print the card's name and power limit;
                 turn TF32 off for float32 matmuls and convolutions.
-  2. build    — compile the normal-equations kernel from csrc/ with nvcc.
-  3. kernel   — kernel vs its plain torch version on the card at
-                (F, P) = (96, 16384), (3, 1000), (1, 1); bitwise
-                repeatability; kernel and plain times at (96, 16384).
+  2. build    — compile csrc/normal_equations.cu and csrc/gather.cu with
+                nvcc, one process per source, started together.
+  3. kernel   — the normal-equations kernel vs its plain torch version at
+                the bulk path's (F, P) = (96, 16384), closure
+                verification's (128, 8192), and (3, 1000), (1, 1);
+                bitwise repeatability; kernel and plain times at
+                (96, 16384).  The two gather kernels vs their plain
+                versions, bitwise, at the Pallas probe's shapes, the bulk
+                path's, closure verification's and M = 1000 and 1;
+                kernel and plain times and GB/s.
   4. drive    — StreamingOdometry on two simulated 1.2 s HDL-32 drives
                 (INS at truth; INS drifting 0.3 m/s) with the production
                 registration config, checked against the simulator's truth
                 (ATE), against the JAX package's golden trajectories
-                (tests/fixtures/odometry_golden_seed23.npz) and for one
-                kernel launch per GN iteration.
+                (tests/fixtures/odometry_golden_seed23.npz), for one
+                normal-equations launch per GN iteration and one launch of
+                each gather kernel per association block.
   5. bulk     — one full-width odometry_step_batched (16384 packets,
-                96 frame slots) timed from a warm map.
+                96 frame slots) timed from a warm map, launches counted.
+  6. fullslam — FullSlam.run_device + finalize_device on bench.py's
+                7 s loop drive (INS drifting 1 m/s) at the production
+                width, checked against the JAX package's golden
+                (tests/fixtures/fullslam_golden_seed3.npz): frames and
+                times, keyframes, candidate pairs, accepted closures,
+                corrected trajectory (x, y and z), ATE; launches
+                counted; the spread of z across runs; frames/s.
 Then one JSON line with the kernel records, and last the result line.
 Imports nothing of JAX or of the JAX package, and checks that before the
 result line.
@@ -38,8 +53,35 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "odometry_golden_seed23.npz")
-KERNEL_SHAPES = ((96, 16384), (3, 1000), (1, 1))
+FULLSLAM_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                               "fullslam_golden_seed3.npz")
+KERNEL_SOURCES = ("normal_equations", "gather")
+# Closure verification of the full-SLAM drive registers 128 candidates
+# of 8192 keyframe points against per-candidate targets of 8192 voxel
+# rows (2048 in the coarse pass): F x V = 1 << 20 (1 << 18) table rows,
+# seven key searches per point, one row per point.
+KERNEL_SHAPES = ((96, 16384), (128, 8192), (3, 1000), (1, 1))
+# (table rows, indices): the Pallas probe's shapes
+# (scripts/bench_pallas_gather.py), the bulk path's (the 256x256x32
+# dilated index and the 65536-row map, 96 slots x 16384 points), closure
+# verification's (fine and coarse), odd M.
+GATHER_SHAPES = ((65536, 8192), (1 << 21, 131072), (1 << 21, 1572864),
+                 (1 << 20, 7 * 128 * 8192), (1 << 18, 7 * 128 * 8192),
+                 (1 << 21, 1000), (1 << 21, 1))
+ROW_SHAPES = ((32768, 1572864), (65536, 1572864), (1 << 20, 128 * 8192),
+              (1 << 18, 128 * 8192), (32768, 1000), (32768, 1))
+# The shapes whose times go into the kernel records (the bulk path's).
+GATHER_RECORDED = {"gather_i32": (1 << 21, 1572864),
+                   "gather_rows8": (65536, 1572864)}
 TIMED_RUNS = 20
+FULLSLAM_RUNS = 5
+# Corrected trajectory against the JAX golden: x, y within 5 cm; z within
+# Z_LIMIT_M.  On this drive the stream's height drifts by metres in both packages, and the
+# port's z lands 0.006-0.137 m from the golden's on the card (0.141 m
+# between its own runs) and 0.105 m on the CPU, while every accepted
+# closure's measured z agrees to 1e-6 m: the bound is ~1.8x the largest
+# reading (see _check_fullslam).
+Z_LIMIT_M = 0.25
 
 
 def _events_ms(fn, runs: int, inner: int = 1) -> float:
@@ -56,6 +98,27 @@ def _events_ms(fn, runs: int, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def _kernel_us(prof) -> float:
+    """Total device time of the kernels in a trace, µs (the kernel rows
+    only: an operator's row repeats the time of the kernels it launched)."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def _device_us(fn, calls: int = 20) -> float:
+    """Device time per call of `fn()` in µs: the kernels torch.profiler
+    sees over `calls` back-to-back calls (host time excluded)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return _kernel_us(prof) / calls
 
 
 def phase_device() -> str:
@@ -75,15 +138,46 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from veloslam_tpu_torch import _build
     t0 = time.perf_counter()
-    so = _build.build("normal_equations")
-    _build.load("normal_equations")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        futures = {name: pool.submit(_build.build, name)
+                   for name in KERNEL_SOURCES}
+        built = {name: f.result() for name, f in futures.items()}
     secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in open(f"{so}.log").read().splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[build] normal_equations.cu -> {os.path.relpath(so, REPO)} in "
-          f"{secs:.2f} s; ptxas: {' | '.join(ptxas)}", flush=True)
+    for name, so in built.items():
+        _build.load(name)
+        ptxas = [ln.strip() for ln in open(f"{so}.log").read().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[build] {name}.cu -> {os.path.relpath(so, REPO)}; ptxas: "
+              f"{' | '.join(ptxas)}", flush=True)
+    print(f"[build] {len(built)} sources in {secs:.2f} s", flush=True)
+
+
+def _reset_launches() -> None:
+    from veloslam_tpu_torch.registration import gather as ga
+    from veloslam_tpu_torch.registration import normal_equations as ne
+    ne.LAUNCHES = 0
+    for k in ga.LAUNCHES:
+        ga.LAUNCHES[k] = 0
+
+
+def _launches() -> dict:
+    from veloslam_tpu_torch.registration import gather as ga
+    from veloslam_tpu_torch.registration import normal_equations as ne
+    return {"fused_normal_equations": ne.LAUNCHES, **ga.LAUNCHES}
+
+
+def _check_launches(where: str, got: dict, want: dict, device) -> None:
+    """Kernel launches of a path against the counts its shapes imply (on
+    the CPU, a rehearsal, the wrappers take the plain path: none)."""
+    if device.type != "cuda":
+        want = dict.fromkeys(want, 0)
+    if got != want:
+        raise AssertionError(f"{where}: kernel launches {got}, want {want}")
 
 
 def _ne_inputs(F: int, P: int, seed: int, device, max_dist: float = 2.0):
@@ -166,22 +260,71 @@ def phase_kernel(device) -> dict:
                   f"per call (~{gbs:.0f} GB/s of the {read / 1e6:.1f} MB "
                   "it reads), plain "
                   f"{record['plain_ms']:.4f} ms (median of {TIMED_RUNS} "
-                  "runs of 10 calls)", flush=True)
+                  "runs of 10 calls); device "
+                  f"{_device_us(lambda: ne.fused_normal_equations(*args)):.2f}"
+                  " µs per call (profiler)", flush=True)
     return record
 
 
-def phase_drive(device, gold, cfg: dict) -> int:
+def phase_gather(device) -> dict:
+    """Both gather kernels against their plain versions (bitwise), and
+    times at the large shapes; returns the records of GATHER_RECORDED."""
+    from veloslam_tpu_torch.registration import gather as ga
+    rng = np.random.default_rng(7)
+    records = {}
+    for name, shapes, row_bytes in (("gather_i32", GATHER_SHAPES, 4),
+                                    ("gather_rows8", ROW_SHAPES, 32)):
+        kernel = getattr(ga, name)
+        plain = getattr(ga, f"{name}_plain")
+        for n, m in shapes:
+            if name == "gather_i32":
+                table = rng.integers(-1, 32768, n).astype(np.int32)
+            else:
+                table = rng.standard_normal((n, 8)).astype(np.float32)
+            table = torch.as_tensor(table, device=device)
+            idx = torch.as_tensor(rng.integers(0, n, m).astype(np.int32),
+                                  device=device)
+            got = kernel(table, idx)
+            ref = plain(table, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"{name} ({n}, {m}): not bitwise equal "
+                                     "to the plain version")
+            err = (got - ref).abs().max().item()
+            line = f"[kernel] {name} table {n} M {m}: bitwise equal"
+            if m >= 131072:
+                ms = _events_ms(lambda: kernel(table, idx), TIMED_RUNS, 10)
+                plain_ms = _events_ms(lambda: plain(table, idx), TIMED_RUNS,
+                                      10)
+                # Bytes each output moves: its index, a table read, a write.
+                dev_us = _device_us(lambda: kernel(table, idx))
+                plain_us = _device_us(lambda: plain(table, idx))
+                rate = (f"{m * (4 + 2 * row_bytes) / dev_us / 1e3:.0f} GB/s"
+                        if dev_us > 0 else "the profiler saw no kernel")
+                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
+                         f"call (median of {TIMED_RUNS} runs of 10 calls); "
+                         f"device {dev_us:.2f} µs kernel ({rate}; bytes of "
+                         f"index + table + output), {plain_us:.2f} µs plain "
+                         "(profiler)")
+                if (n, m) == GATHER_RECORDED[name]:
+                    records[name] = {"max_abs_err": err, "ms": ms,
+                                     "plain_ms": plain_ms}
+            print(line, flush=True)
+    return records
+
+
+def phase_drive(device, gold, cfg: dict) -> dict:
     """Replay each golden drive through StreamingOdometry; returns the
     kernel launches over all of them."""
     from veloslam_tpu_torch.decode import calibration
     from veloslam_tpu_torch.decode.decode import DeviceCalib
     from veloslam_tpu_torch.io import simulate as sim
-    from veloslam_tpu_torch.registration import normal_equations as ne
     from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
     from veloslam_tpu_torch.runtime.odometry import StreamingOdometry
 
     iters = cfg["odometry"]["reg_iterations"]
-    total = 0
+    blocks = -(-iters // cfg["odometry"]["reassociate_every"])
+    total = {}
     for drive in cfg["drives"]:
         name = drive["name"]
         seq = sim.generate_sequence(duration_s=cfg["duration_s"],
@@ -192,17 +335,17 @@ def phase_drive(device, gold, cfg: dict) -> int:
                                   device=device),
             model=cfg["model"], **cfg["odometry"])
         track = sim.truth_track(seq, drift_rate=drive["drift_rate"])
-        ne.LAUNCHES = 0
+        _reset_launches()
         t0 = time.perf_counter()
         res = odo.run(seq["packets"], seq["pkt_times_us"], track,
                       batch=cfg["batch"])
         secs = time.perf_counter() - t0
-        launches = ne.LAUNCHES
-        if launches != iters * odo.batches_fed:
-            raise AssertionError(
-                f"{name}: {launches} kernel launches, want {iters} per batch "
-                f"x {odo.batches_fed} batches")
-        total += launches
+        launches = _launches()
+        nb = odo.batches_fed
+        _check_launches(name, launches, {
+            "fused_normal_equations": iters * nb,
+            "gather_i32": blocks * nb, "gather_rows8": blocks * nb}, device)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
         pos = res["positions"]
         if not (res["n_frames"] >= 8 and np.isfinite(pos).all()
                 and np.isfinite(res["quaternions"]).all()):
@@ -230,8 +373,8 @@ def phase_drive(device, gold, cfg: dict) -> int:
               f"{odo.batches_fed} batches of {cfg['batch']}, "
               f"{res['n_frames']} frames, {secs:.3f} s wall; ATE rmse "
               f"{rmse:.5f} m (limit {limit:.3f}; raw INS {ins_err:.3f}); "
-              f"max {off:.2e} m from the JAX golden; {launches} kernel "
-              f"launches = {iters} x {odo.batches_fed} batches", flush=True)
+              f"max {off:.2e} m from the JAX golden; launches {launches} "
+              f"over {nb} batches", flush=True)
     return total
 
 
@@ -262,7 +405,6 @@ def phase_bulk(device, smi: str, reg: dict) -> None:
     recorded it from the JAX package's RegistrationConfig."""
     from veloslam_tpu_torch.decode import calibration
     from veloslam_tpu_torch.decode.decode import DeviceCalib
-    from veloslam_tpu_torch.registration import normal_equations as ne
     from veloslam_tpu_torch.runtime import odometry as odo
 
     slots = 96
@@ -283,11 +425,12 @@ def phase_bulk(device, smi: str, reg: dict) -> None:
                            voxel_size=reg["voxel_size"])
     warm, _ = step(fresh)                       # warm-up; fills the map
     torch.cuda.synchronize()
-    before = ne.LAUNCHES
+    _reset_launches()
     ms = _events_ms(lambda: step(warm), 5)
-    per_call = (ne.LAUNCHES - before) / 5
-    if per_call != reg["reg_iterations"]:
-        raise AssertionError(f"{per_call} kernel launches per step")
+    blocks = -(-reg["reg_iterations"] // reg["reassociate_every"])
+    _check_launches("bulk (5 steps)", _launches(), {
+        "fused_normal_equations": 5 * reg["reg_iterations"],
+        "gather_i32": 5 * blocks, "gather_rows8": 5 * blocks}, device)
     after, _, res = odo._batched_core(
         warm, pkts, calib, rel_s, zero, zero, track_rel, track_q, track_t,
         track_v, min_points=4, min_planarity=0.35, **kw)
@@ -302,25 +445,220 @@ def phase_bulk(device, smi: str, reg: dict) -> None:
           f"{smi})", flush=True)
 
 
+def _fullslam_drive(device, drive: dict, model: str):
+    """The drive's packets, INS track and a fresh engine on `device`."""
+    from veloslam_tpu_torch.decode import calibration
+    from veloslam_tpu_torch.decode.decode import DeviceCalib
+    from veloslam_tpu_torch.io import simulate as sim
+    from veloslam_tpu_torch.runtime.fullslam import FullSlam
+    seq = sim.generate_sequence(
+        duration_s=drive["duration_s"], model=model, seed=drive["seed"],
+        world=sim.World.demo(**drive["world"]),
+        trajectory=sim.circle_trajectory(**drive["circle"]))
+    track = sim.truth_track(seq, drift_rate=drive["drift_rate"])
+
+    def engine():
+        return FullSlam(DeviceCalib.from_host(calibration.default_for(model),
+                                              device=device),
+                        model=model, **drive["engine"])
+    return seq, track, engine
+
+
+def run_fullslam(seq, track, eng, drive: dict, floor: int) -> tuple:
+    """Stream the drive, then queue and read the finalize sweep: returns
+    (results on the host, stream s, finalize s); each timed span ends
+    in a device synchronize."""
+    from veloslam_tpu_torch.runtime.pipeline import sweep_budget
+    sync = (torch.cuda.synchronize if eng.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    eng.run_device(seq["packets"], seq["pkt_times_us"], track,
+                   batch=drive["batch"])
+    sync()
+    t1 = time.perf_counter()
+    budget = sweep_budget(eng, floor)
+    dev = eng.finalize_device(max_candidates=budget, **drive["finalize"])
+    sync()
+    t2 = time.perf_counter()
+    host = {k: v.cpu().numpy() for k, v in dev.items()
+            if isinstance(v, torch.Tensor)}
+    host["odometry_t"] = eng.state.traj_t.cpu().numpy()
+    host["max_candidates"] = budget
+    return host, t1 - t0, t2 - t1
+
+
+def phase_fullslam(device, smi: str) -> dict:
+    """bench.py's full-SLAM drive through FullSlam + finalize_device,
+    against the JAX golden: a warm-up run, then FULLSLAM_RUNS measured
+    runs; returns the kernel launches of one measured run."""
+    gold = np.load(FULLSLAM_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["drives"]}["full"]
+    seq, track, engine = _fullslam_drive(device, drive, cfg["model"])
+    warm_eng = engine()            # first run: loads the card's libraries
+    run_fullslam(seq, track, warm_eng, drive, cfg["budget_floor"])
+    runs, z = [], []
+    for _ in range(FULLSLAM_RUNS):
+        eng = engine()
+        _reset_launches()
+        host, stream_s, fin_s = run_fullslam(seq, track, eng, drive,
+                                             cfg["budget_floor"])
+        runs.append((stream_s, fin_s, _launches()))
+        _check_fullslam(host, eng, seq, drive, gold, runs[-1][2], device)
+        n = int(host["n_frames"])
+        z.append((host["traj_t"][:n, 2], host["odometry_t"][:n, 2]))
+    stream_s, fin_s = (float(np.median([r[i] for r in runs]))
+                       for i in (0, 1))
+    launches = runs[-1][2]
+    total = stream_s + fin_s
+    # The port's own spread between runs, a witness apart from the golden.
+    spread = [float(np.ptp(np.stack([r[i] for r in z]), axis=0).max())
+              for i in (0, 1)]
+    print(f"[fullslam] z spread across the {FULLSLAM_RUNS} runs: corrected "
+          f"{spread[0]:.3e} m, odometry {spread[1]:.3e} m (max over frames "
+          f"of max - min)", flush=True)
+    print(f"[fullslam] stream {stream_s:.3f} s + finalize {fin_s:.3f} s = "
+          f"{total:.3f} s: {n / total:.1f} frames/s ({n / stream_s:.1f} "
+          f"stream only; medians of {FULLSLAM_RUNS} runs, each from a fresh "
+          f"engine, each checked); launches per run {launches}; {smi}",
+          flush=True)
+    return launches
+
+
+def _check_fullslam(host, eng, seq, drive, gold, launches, device):
+    """One run of the full drive against the JAX golden."""
+    from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
+
+    def g(k):
+        return gold[f"full_{k}"]
+
+    n = int(host["n_frames"])
+    times_us = (host["traj_time"][:n].astype(np.float64) * 1e6
+                + eng._stream_t0_us).astype(np.int64)
+    if n != int(g("n_frames")) or not np.array_equal(times_us,
+                                                     g("times_us")):
+        raise AssertionError(f"fullslam: {n} frames / times differ from the "
+                             f"golden's {int(g('n_frames'))}")
+    kf_n = int(host["kf_n"])
+    if kf_n != int(g("kf_n")):
+        raise AssertionError(f"fullslam: {kf_n} keyframes, golden "
+                             f"{int(g('kf_n'))}")
+    if host["max_candidates"] != int(g("max_candidates")):
+        raise AssertionError(f"fullslam: budget {host['max_candidates']}, "
+                             f"golden {int(g('max_candidates'))}")
+    # Candidate pairs and accepted pairs as sets: the greedy pass takes
+    # entries in value order, and two values that tie within float32
+    # rounding (a score, a distance) may come out in either order on the
+    # card, which permutes the slots but not the graph that is solved.
+    def pairs(h, flag):
+        return sorted(zip(h["cand_i"][h[flag]].tolist(),
+                          h["cand_j"][h[flag]].tolist()))
+    gh = {k: g(k) for k in ("cand_i", "cand_j", "cand_valid", "accept")}
+    same_order = all(np.array_equal(host[k], gh[k]) for k in gh)
+    for flag in ("cand_valid", "accept"):
+        if pairs(host, flag) != pairs(gh, flag):
+            raise AssertionError(
+                f"fullslam: {flag} pairs differ from the golden:\n"
+                f"{pairs(host, flag)}\n{pairs(gh, flag)}")
+    n_acc = int(host["n_accepted"])
+    if n_acc < 3:
+        raise AssertionError(f"fullslam: {n_acc} closures accepted, want 3+")
+    pos = host["traj_t"][:n]
+    if not (np.isfinite(pos).all() and np.isfinite(host["traj_q"][:n]).all()):
+        raise AssertionError("fullslam: non-finite corrected trajectory")
+    # x, y within 5 cm; z within Z_LIMIT_M: on this drive the odometry's
+    # height drifts by metres in both packages (z is barely observed), so
+    # float sums taken in another order move the stream's z by a
+    # decimetre, between the port's own runs on the card as against the
+    # golden.  The finalize's correction (corrected - stream) is printed
+    # beside it: it moves with the stream's z, a few cm at most.
+    off = float(np.linalg.norm(pos[:, :2] - g("positions")[:, :2],
+                               axis=1).max())
+    off_z = float(np.abs(pos[:, 2] - g("positions")[:, 2]).max())
+    corr = float(np.linalg.norm(
+        (pos - host["odometry_t"][:n])
+        - (g("positions") - g("odometry_positions")), axis=1).max())
+    odo_z = float(np.abs(host["odometry_t"][:n, 2]
+                         - g("odometry_positions")[:, 2]).max())
+    odo_xy = float(np.linalg.norm(host["odometry_t"][:n, :2]
+                                  - g("odometry_positions")[:, :2],
+                                  axis=1).max())
+    if not (off <= 0.05 and off_z <= Z_LIMIT_M):
+        raise AssertionError(f"fullslam: corrected trajectory {off} m from "
+                             f"the JAX golden in x, y, {off_z} m in z")
+    # Accepted closures' measured translations, matched by pair.
+    def meas(h):
+        return {(i, j): t for i, j, t, a in zip(
+            h["cand_i"].tolist(), h["cand_j"].tolist(), h["meas_t"],
+            h["accept"]) if a}
+    gm, hm = meas({**gh, "meas_t": g("meas_t")}), meas(host)
+    meas_d = np.abs(np.stack([hm[k] - gm[k] for k in gm]))
+    truth = interpolate_positions(times_us, seq["ins_t_us"], seq["ins_pos"])
+    rmse = ate(pos[:, :2], truth[:, :2], align=False)["rmse"]
+    limit = min(float(g("ate")) + 0.02, 0.5 * float(g("ate_raw_ins")))
+    if not rmse <= limit:
+        raise AssertionError(f"fullslam: ATE {rmse} m > {limit} m")
+    blocks = -(-drive["engine"]["reg_iterations"]
+               // drive["engine"]["reassociate_every"])
+    nb = eng.batches_fed
+    # Verification: coarse 6 GN iterations re-associating every 2, fine
+    # and reverse 20 every 4, and H_self: 46 + 1 normal-equations
+    # launches, 3 + 5 + 5 + 1 association blocks.
+    _check_launches("fullslam", launches, {
+        "fused_normal_equations":
+            drive["engine"]["reg_iterations"] * nb + 6 + 20 + 20 + 1,
+        "gather_i32": blocks * nb + 14,
+        "gather_rows8": blocks * nb + 14}, device)
+    print(f"[fullslam] {len(seq['packets'])} packets in {nb} batches of "
+          f"{drive['batch']} (bootstrap ramp first), {n} frames, {kf_n} "
+          f"keyframes (ring {eng.ring.capacity}); "
+          f"{int(host['cand_valid'].sum())} candidates of "
+          f"{host['max_candidates']}, {n_acc} accepted, equal to the "
+          f"JAX golden's as sets (slot order "
+          f"{'equal' if same_order else 'permuted'}); corrected trajectory "
+          f"max {off:.2e} m from it in x, y, {off_z:.2e} m in z, its "
+          f"correction {corr:.2e} m from the golden's in 3-D; odometry "
+          f"{odo_xy:.2e} m in x, y, {odo_z:.2e} m in z; accepted closures' "
+          f"measured t max {meas_d[:, :2].max():.2e} m in x, y, "
+          f"{meas_d[:, 2].max():.2e} m in z; 2-D ATE "
+          f"{rmse:.4f} m (golden {float(g('ate')):.4f}, raw INS "
+          f"{float(g('ate_raw_ins')):.3f}, limit {limit:.4f})", flush=True)
+
+
 def main() -> int:
     smi = phase_device()
     device = torch.device("cuda", 0)
     phase_build()
     record = phase_kernel(device)
+    gather_records = phase_gather(device)
     gold = np.load(GOLDEN)
     cfg = json.loads(str(gold["config"]))
-    launches = phase_drive(device, gold, cfg)
+    drive_launches = phase_drive(device, gold, cfg)
+    print(f"[drive] launches over both drives: {drive_launches}", flush=True)
     phase_bulk(device, smi, cfg["odometry"])
+    launches = phase_fullslam(device, smi)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "veloslam_tpu"))
     if loaded:
         raise AssertionError(f"the port loaded the JAX package: {loaded}")
-    kernels = [{
-        "name": "fused_normal_equations", "route": "cuda",
-        "source": "veloslam_tpu_torch/csrc/normal_equations.cu",
-        "replaces": "veloslam_tpu/registration/pallas_kernels.py:84",
-        "launches": launches, "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"], "plain_ms": record["plain_ms"]}]
+    src = "veloslam_tpu_torch/csrc/"
+    kernels = [
+        {"name": "fused_normal_equations", "route": "cuda",
+         "source": src + "normal_equations.cu",
+         "replaces": "veloslam_tpu/registration/pallas_kernels.py:84",
+         "launches": launches["fused_normal_equations"],
+         "max_abs_err": record["max_abs_err"], "ms": record["ms"],
+         "plain_ms": record["plain_ms"]},
+        {"name": "gather_i32", "route": "cuda", "source": src + "gather.cu",
+         "replaces": "scripts/bench_pallas_gather.py:54",
+         "launches": launches["gather_i32"],
+         **gather_records["gather_i32"]},
+        {"name": "gather_rows8", "route": "cuda", "source": src + "gather.cu",
+         "replaces": "scripts/bench_pallas_gather.py:88",
+         "launches": launches["gather_rows8"],
+         **gather_records["gather_rows8"]},
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

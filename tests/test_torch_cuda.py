@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the hand-written normal-equations kernel
-against its plain version, and the odometry slice on the card against the
-same slice on the CPU.  Marked `cuda`; each test skips where
+"""The port on a CUDA card: the hand-written normal-equations and gather
+kernels against their plain versions, the wrappers' input checks, and
+the odometry slice on the card against the same slice on the CPU.
+Marked `cuda`; each test skips where
 torch.cuda.is_available() is false.  On a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda -q \
@@ -19,6 +20,7 @@ from torch_helpers import small_threads  # noqa: F401
 from veloslam_tpu_torch.decode import calibration as cal
 from veloslam_tpu_torch.decode.decode import DeviceCalib
 from veloslam_tpu_torch.io import simulate as sim
+from veloslam_tpu_torch.registration import gather as ga
 from veloslam_tpu_torch.registration import normal_equations as ne
 from veloslam_tpu_torch.runtime import odometry as odo
 
@@ -75,3 +77,84 @@ def test_odometry_on_card_matches_cpu(card):
     assert a["n_frames"] == b["n_frames"] >= 5
     np.testing.assert_array_equal(a["times_us"], b["times_us"])
     assert np.abs(a["positions"] - b["positions"]).max() < 0.01
+
+
+@pytest.mark.parametrize("name,N,M", [
+    ("gather_i32", 1 << 21, 1), ("gather_i32", 1 << 21, 1000),
+    ("gather_i32", 65536, 4097), ("gather_i32", 7, 0),
+    ("gather_rows8", 32768, 1), ("gather_rows8", 32768, 1000),
+    ("gather_rows8", 1000, 4097), ("gather_rows8", 3, 0)])
+def test_gather_kernels_match_plain_on_card(card, name, N, M):
+    """Bitwise equal to table[idx] at sizes that are no multiple of a
+    block; LAUNCHES counts each launch (an empty gather launches none)."""
+    rng = np.random.default_rng(N + M)
+    if name == "gather_i32":
+        table = rng.integers(-1, 32768, N).astype(np.int32)
+    else:
+        table = rng.standard_normal((N, 8)).astype(np.float32)
+    table = torch.as_tensor(table, device=card)
+    idx = torch.as_tensor(rng.integers(0, N, M).astype(np.int32),
+                          device=card)
+    before = ga.LAUNCHES[name]
+    got = getattr(ga, name)(table, idx)
+    torch.cuda.synchronize()
+    assert ga.LAUNCHES[name] == before + (1 if M else 0)
+    ref = getattr(ga, f"{name}_plain")(table, idx)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_gather_wrappers_check_inputs_on_card(card):
+    rows = torch.zeros((17, 8), device=card)
+    idx = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        ga.gather_rows8(rows.reshape(-1)[1:129].reshape(16, 8), idx)
+    with pytest.raises(ValueError):
+        ga.gather_i32(torch.zeros(8, dtype=torch.int32, device=card),
+                      idx.cpu())
+    with pytest.raises(TypeError):
+        ga.gather_i32(torch.zeros(8, dtype=torch.int32, device=card),
+                      idx.long())
+    with pytest.raises(ValueError):
+        ga.gather_rows8(rows, idx[::2])
+
+
+def test_small_fullslam_on_card_matches_jax_golden(card):
+    """The CPU end-to-end drive of test_torch_fullslam on the card:
+    counts and times exact, candidate and accepted pairs equal as sets
+    (near-tied values may permute slots on the card), trajectory within
+    1 cm in 3-D, as on the CPU; every kernel launched."""
+    import json
+    import os
+
+    from veloslam_tpu_torch.runtime.fullslam import FullSlam
+    gold = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                                "fullslam_golden_seed3.npz"))
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["drives"]}["small"]
+    seq = sim.generate_sequence(
+        duration_s=drive["duration_s"], model=cfg["model"],
+        seed=drive["seed"], world=sim.World.demo(**drive["world"]),
+        trajectory=sim.circle_trajectory(**drive["circle"]))
+    eng = FullSlam(DeviceCalib.from_host(cal.hdl32(), device=card),
+                   model=cfg["model"], **drive["engine"])
+    before = (ne.LAUNCHES, dict(ga.LAUNCHES))
+    eng.run_device(seq["packets"], seq["pkt_times_us"],
+                   sim.truth_track(seq, drift_rate=drive["drift_rate"]),
+                   batch=drive["batch"])
+    out = eng.finalize_device(max_candidates=drive["max_candidates"],
+                              **drive["finalize"])
+    h = {k: v.cpu().numpy() for k, v in out.items()
+         if isinstance(v, torch.Tensor)}
+    assert ne.LAUNCHES > before[0]
+    assert all(ga.LAUNCHES[k] > before[1][k] for k in ga.LAUNCHES)
+    nf = int(h["n_frames"])
+    assert nf == int(gold["small_n_frames"])
+    assert int(h["kf_n"]) == int(gold["small_kf_n"])
+    for flag in ("cand_valid", "accept"):
+        def pairs(i, j, f):
+            return sorted(zip(i[f].tolist(), j[f].tolist()))
+        assert pairs(h["cand_i"], h["cand_j"], h[flag]) == pairs(
+            gold["small_cand_i"], gold["small_cand_j"], gold[f"small_{flag}"])
+    d = np.linalg.norm(h["traj_t"][:nf] - gold["small_positions"], axis=1)
+    assert d.max() < 0.01

@@ -183,3 +183,68 @@ def test_smallest_eigenvector_matches_jax():
     assert sep.sum() > 400
     assert np.all(dots[sep] > 1 - 1e-5), dots[sep].min()
     np.testing.assert_array_equal(got[0], want[0])       # +z fallback
+
+
+def _stacked(seeds, vs, cap):
+    """F clouds → the JAX grids (vmapped build) and the port's batched
+    build, origin 0, one voxel size."""
+    clouds = [_cloud(s, spread=10.0) for s in seeds]
+    pts = np.stack([c[0] for c in clouds])
+    mask = np.stack([c[1] for c in clouds])
+    import jax
+    want = jax.vmap(lambda p, m: jvx.build_grid(
+        p, m, jnp.zeros(3), vs, capacity=cap))(jnp.asarray(pts),
+                                               jnp.asarray(mask))
+    F = len(seeds)
+    got = vx.build_grid(t(pts), t(mask), torch.zeros(F, 3),
+                        torch.full((F,), vs), capacity=cap)
+    return pts, mask, want, got
+
+
+@pytest.mark.parametrize("cap", [4096, 500])
+def test_batched_build_grid_matches_vmapped_jax(cap):
+    """F scans in one build equal F separate builds: keys and counts
+    exact, moments as test_build_grid_matches_jax."""
+    _, _, want, got = _stacked([11, 12, 13], 0.5, cap)
+    assert tuple(got.keys.shape) == (3, cap) and got.capacity == cap
+    _check_grid(got, want)
+
+
+def test_lookup_matches_jax():
+    """Binary-search lookup through the int32 gather, one grid and F
+    stacked grids: rows exact, −1 for absent and INVALID_KEY queries."""
+    pts, mask, want, got = _stacked([14, 15], 0.5, 4096)
+    rng = np.random.default_rng(16)
+    keys = n(want.keys)
+    for f in range(2):
+        occ = keys[f][keys[f] != vx.INVALID_KEY]
+        q = np.concatenate([rng.choice(occ, 300),
+                            rng.integers(0, 2**30, 200),
+                            [vx.INVALID_KEY]]).astype(np.int32)
+        single = vx.VoxelGrid(*(x[f] for x in got))
+        jsingle = jvx.VoxelGrid(*(x[f] for x in want))
+        exp = n(jvx.lookup(jsingle, jnp.asarray(q)))
+        np.testing.assert_array_equal(n(vx.lookup(single, t(q))), exp)
+        assert (exp >= 0).sum() >= 300 and (exp < 0).sum() >= 1
+    q2 = np.stack([keys[0][:100], keys[1][:100]])
+    np.testing.assert_array_equal(
+        n(vx.lookup(got, t(q2))),
+        np.stack([n(jvx.lookup(jvx.VoxelGrid(*(x[f] for x in want)),
+                               jnp.asarray(q2[f]))) for f in range(2)]))
+
+
+def test_lookup_nearest_matches_vmapped_jax():
+    """Seven-neighbour nearest usable voxel, F stacked grids: rows exact."""
+    import jax
+    _, _, want, got = _stacked([17, 18, 19], 1.0, 4096)
+    usable = jax.vmap(lambda *g: jgicp.plane_grid_from(jvx.VoxelGrid(*g))
+                      .usable)(*want)
+    rng = np.random.default_rng(20)
+    q = rng.uniform(-12, 12, (3, 3000, 3)).astype(np.float32)
+    q[..., 2] *= 0.2
+    m = rng.random((3, 3000)) < 0.9
+    exp = n(jax.vmap(jvx.lookup_nearest)(want, jnp.asarray(q),
+                                         jnp.asarray(m), usable))
+    got_idx = n(vx.lookup_nearest(got, t(q), t(m), t(usable)))
+    np.testing.assert_array_equal(got_idx, exp)
+    assert (exp >= 0).mean() > 0.05 and (exp < 0).any()

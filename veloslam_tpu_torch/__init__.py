@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of veloslam_tpu's bulk-odometry path.
+"""PyTorch + CUDA port of veloslam_tpu's bulk-odometry and device
+full-SLAM paths.
 
 Mirrors the JAX package's module paths (``veloslam_tpu_torch.registration.
 gicp`` answers to ``veloslam_tpu.registration.gicp``).  Imports torch and

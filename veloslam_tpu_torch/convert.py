@@ -1,11 +1,14 @@
-"""Carry calibration and odometry state across from the JAX package.
+"""Carry calibration, odometry and full-SLAM state across from the JAX
+package.
 
-The JAX package's `DeviceCalib` and `OdometryState` (sample-assembly
-carry) are NamedTuples; converted leaf by leaf with `np.asarray`, they
-become trees of numpy arrays with the same field names.  These functions
-turn such trees into the port's tensors on a device, and the port's state
-back into numpy, so both packages can start a step from one mid-drive
-state.
+The JAX package's `DeviceCalib`, `OdometryState` (sample-assembly carry),
+`KeyframeRing` and `SlamState` are NamedTuples; converted leaf by leaf
+with `np.asarray`, they become trees of numpy arrays with the same field
+names.  These functions turn such trees into the port's tensors on a
+device, and the port's state back into numpy, so both packages can start
+a step from one mid-drive state.  The port's ring carries one trash row
+past its capacity (runtime.fullslam.KeyframeRing); it is added on the way
+in and cut off on the way out.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ import torch
 from veloslam_tpu_torch.decode.decode import DeviceCalib
 from veloslam_tpu_torch.decode.frames import SampleCarry
 from veloslam_tpu_torch.registration.voxel import VoxelGrid
+from veloslam_tpu_torch.runtime.fullslam import KeyframeRing, SlamState
 from veloslam_tpu_torch.runtime.odometry import OdometryState
+
+_RING_ROWS = ("q", "t", "time_rel_s", "desc", "pts", "msk")
 
 
 def _tree_to_torch(cls, leaves, device):
@@ -50,3 +56,34 @@ def odometry_state_to_numpy(state: OdometryState) -> OdometryState:
             for f in OdometryState._fields if f not in ("carry", "map_grid")}
     return OdometryState(carry=_tree_to_numpy(state.carry),
                          map_grid=_tree_to_numpy(state.map_grid), **rest)
+
+
+def ring_from_numpy(leaves, device) -> KeyframeRing:
+    """A KeyframeRing-shaped tree of numpy arrays (capacity rows) → the
+    port's ring (capacity + 1 rows, the last one the trash row)."""
+    out = {}
+    for f in KeyframeRing._fields:
+        a = np.array(getattr(leaves, f))
+        if f in _RING_ROWS:
+            a = np.concatenate([a, np.zeros_like(a[:1])])
+        out[f] = torch.as_tensor(a, device=device)
+    return KeyframeRing(**out)
+
+
+def ring_to_numpy(ring: KeyframeRing) -> KeyframeRing:
+    """The port's ring as numpy leaves, trash row cut off."""
+    K = ring.capacity
+    return KeyframeRing(*(
+        x[:K].detach().cpu().numpy() if f in _RING_ROWS
+        else x.detach().cpu().numpy()
+        for f, x in zip(KeyframeRing._fields, ring)))
+
+
+def slam_state_from_numpy(leaves, device) -> SlamState:
+    return SlamState(odom=odometry_state_from_numpy(leaves.odom, device),
+                     kf=ring_from_numpy(leaves.kf, device))
+
+
+def slam_state_to_numpy(state: SlamState) -> SlamState:
+    return SlamState(odom=odometry_state_to_numpy(state.odom),
+                     kf=ring_to_numpy(state.kf))

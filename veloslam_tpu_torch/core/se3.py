@@ -19,6 +19,14 @@ class Pose(NamedTuple):
     q: torch.Tensor
     t: torch.Tensor
 
+    @staticmethod
+    def identity(batch_shape=(), *, device=None,
+                 dtype=torch.float32) -> "Pose":
+        q = torch.zeros((*batch_shape, 4), dtype=dtype, device=device)
+        q[..., 0] = 1.0
+        return Pose(q, torch.zeros((*batch_shape, 3), dtype=dtype,
+                                   device=device))
+
 
 # --- quaternions -------------------------------------------------------------
 
@@ -48,6 +56,20 @@ def cross(a, b):
     bx, by, bz = b.unbind(-1)
     return torch.stack([ay * bz - az * by, az * bx - ax * bz,
                         ax * by - ay * bx], dim=-1)
+
+
+def quat_to_matrix(q):
+    """Unit quaternions (..., 4) → rotation matrices (..., 3, 3)."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(*m.shape[:-1], 3, 3)
 
 
 def quat_rotate(q, v):
@@ -113,6 +135,11 @@ def inverse(p: Pose) -> Pose:
 def apply(p: Pose, pts):
     """Transform points (..., 3)."""
     return quat_rotate(p.q, pts) + p.t
+
+
+def relative(a: Pose, b: Pose) -> Pose:
+    """a⁻¹ ∘ b."""
+    return compose(inverse(a), b)
 
 
 def interp(a: Pose, b: Pose, u) -> Pose:

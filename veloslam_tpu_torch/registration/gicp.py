@@ -1,24 +1,28 @@
-"""Voxelized point-to-plane registration of F scans against one shared
-target map.
+"""Voxelized point-to-plane registration of F scans, against one shared
+target map or against F targets of their own.
 
-Port of the bulk-odometry half of veloslam_tpu/registration/gicp.py.  The
-target is the rolling map's voxel-Gaussian grid with a closed-form plane
-normal per voxel; correspondences come from the pre-dilated dense index
-(one gather per point); each Gauss-Newton iteration with fixed
-correspondences is one fused normal-equations launch for all F slots
-(registration.normal_equations), a damped batched 6×6 Cholesky solve, a
-step clamp and a left retraction.  The JAX original vmaps `register`
-over slots; here F is a batch axis throughout.
+Port of veloslam_tpu/registration/gicp.py.  A target is a voxel-Gaussian
+grid with a closed-form plane normal per voxel, plus a packed (V, 8) row
+table [μ, n, 0, 0] that the association gathers from in one kernel
+launch.  Correspondences come from the pre-dilated dense index (shared
+map target, one gather per point) or from seven binary searches with a
+nearest-mean choice (per-scan targets, loop-closure verification).  Each
+Gauss-Newton iteration with fixed correspondences is one fused
+normal-equations launch for all F slots (registration.normal_equations),
+a damped batched 6×6 Cholesky solve, a step clamp and a left retraction.
+The JAX original vmaps `register` over slots; here F is a batch axis
+throughout, and F stacked targets are leaves with a leading F.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.registration import voxel as vx
+from veloslam_tpu_torch.registration.gather import gather_rows8
 from veloslam_tpu_torch.registration.normal_equations import (
     fused_normal_equations)
 
@@ -32,34 +36,86 @@ class GicpResult(NamedTuple):
 
 
 class PlaneGrid(NamedTuple):
-    """VoxelGrid augmented with per-voxel unit normals + validity."""
+    """VoxelGrid augmented with per-voxel unit normals + validity, and the
+    (V, 8) row table [μ, n, 0, 0] the association gathers from.  Stacked
+    targets carry a leading F on every leaf."""
 
     grid: vx.VoxelGrid
     normal: torch.Tensor        # (V, 3)
     usable: torch.Tensor        # (V,) bool — enough points for a stable plane
+    rows: torch.Tensor          # (V, 8) float32, contiguous
+
+
+def make_plane_grid(grid: vx.VoxelGrid, normal, usable) -> PlaneGrid:
+    """PlaneGrid with its packed row table, built once per target."""
+    pad = torch.zeros_like(normal[..., :2])
+    rows = torch.cat([grid.mean, normal, pad], dim=-1).contiguous()
+    return PlaneGrid(grid=grid, normal=normal, usable=usable, rows=rows)
 
 
 def plane_grid_from(grid: vx.VoxelGrid, *, min_points: int = 4,
                     min_planarity: float = 0.35) -> PlaneGrid:
-    """Point-to-plane target from a VoxelGrid: normals + a usable gate
-    (occupied, ≥ min_points, planarity (λ2 − λ3)/λ1 ≥ min_planarity)."""
+    """Point-to-plane target from a VoxelGrid (or F stacked grids):
+    normals + a usable gate (occupied, ≥ min_points, planarity
+    (λ2 − λ3)/λ1 ≥ min_planarity)."""
     normal = vx.smallest_eigenvector(grid.cov)
     l1, l2, l3 = vx.eigvals3(grid.cov)
     planarity = (l2 - l3) / torch.clamp(l1, min=1e-12)
     usable = (grid.occupied & (grid.count >= min_points)
               & (planarity >= min_planarity))
-    return PlaneGrid(grid=grid, normal=normal, usable=usable)
+    return make_plane_grid(grid, normal, usable)
+
+
+def build_plane_grid(pts, mask, origin, voxel_size: float, *, capacity: int,
+                     min_points: int = 4,
+                     min_planarity: float = 0.35) -> PlaneGrid:
+    """F scans (F, P, 3) + masks (F, P) → F stacked per-voxel plane
+    targets, all keyed from one `origin` (3,) at one voxel size; the
+    planarity gate rejects line-like voxels (one scan-ring arc) whose
+    normal points radially."""
+    F = pts.shape[0]
+    f32 = dict(dtype=torch.float32, device=pts.device)
+    grid = vx.build_grid(pts, mask, origin.expand(F, 3),
+                         torch.full((F,), float(voxel_size), **f32),
+                         capacity=capacity)
+    return plane_grid_from(grid, min_points=min_points,
+                           min_planarity=min_planarity)
+
+
+def stack_plane_grids(grids) -> PlaneGrid:
+    """Stack same-capacity PlaneGrids on a new leading axis for
+    `register_batch` with per-scan targets (`dense=None`)."""
+    return PlaneGrid(
+        grid=vx.VoxelGrid(*(torch.stack(xs) for xs in
+                            zip(*(g.grid for g in grids)))),
+        normal=torch.stack([g.normal for g in grids]),
+        usable=torch.stack([g.usable for g in grids]),
+        rows=torch.stack([g.rows for g in grids]))
 
 
 def associate(pts, mask, pose: se3.Pose, target: PlaneGrid,
-              dense: vx.DilatedIndex):
-    """Correspondences at the CURRENT poses through the dilated index:
-    per-point target plane (μ, n) and hit mask, each with leading (F, P)."""
+              dense: Optional[vx.DilatedIndex] = None):
+    """Correspondences at the CURRENT poses: per-point target plane
+    (μ, n) as contiguous (F, P, 3) and the hit mask (F, P).
+
+    A shared target comes with its DilatedIndex (one gather per point);
+    F stacked targets (`dense=None`) use `voxel.lookup_nearest`.  Either
+    way (μ, n) come from one row-gather kernel launch."""
+    F, P = mask.shape
     g = target.grid
     p = se3.apply(se3.Pose(pose.q[:, None], pose.t[:, None]), pts)
-    idx = vx.lookup_dilated(g, dense, p, mask)
-    safe = torch.clamp(idx, min=0).long()
-    return g.mean[safe], target.normal[safe], idx >= 0
+    if dense is None:
+        idx = vx.lookup_nearest(g, p, mask, target.usable)
+        V = target.rows.shape[1]
+        rows = torch.clamp(idx, min=0) + V * torch.arange(
+            F, dtype=torch.int32, device=pts.device)[:, None]
+        table = target.rows.reshape(F * V, 8)
+    else:
+        idx = vx.lookup_dilated(g, dense, p, mask)
+        rows = torch.clamp(idx, min=0)
+        table = target.rows
+    got = gather_rows8(table, rows.reshape(-1)).reshape(F, P, 8)
+    return got[..., 0:3].contiguous(), got[..., 3:6].contiguous(), idx >= 0
 
 
 def normal_equations_fixed(pts, pose: se3.Pose, mu, n, hit, *,
@@ -70,6 +126,16 @@ def normal_equations_fixed(pts, pose: se3.Pose, mu, n, hit, *,
         pts, pose.q.contiguous(), pose.t.contiguous(), mu, n,
         hit.view(torch.uint8), huber_delta=huber_delta, max_dist=max_dist)
     return H, b, err_sum / torch.clamp(w_sum, min=1.0), n_hit
+
+
+def normal_equations(pts, mask, pose: se3.Pose, target: PlaneGrid, *,
+                     dense: Optional[vx.DilatedIndex] = None,
+                     huber_delta: float = 0.5, max_dist: float = 2.0):
+    """One full linearization (associate + linearize at the same poses):
+    (H (F,6,6), b (F,6), err (F,), n_matched (F,))."""
+    mu, n, hit = associate(pts, mask, pose, target, dense)
+    return normal_equations_fixed(pts, pose, mu, n, hit,
+                                  huber_delta=huber_delta, max_dist=max_dist)
 
 
 def _gn_step(pose: se3.Pose, H, b, n_hit, damping: float) -> se3.Pose:
@@ -99,19 +165,24 @@ def _gn_step(pose: se3.Pose, H, b, n_hit, damping: float) -> se3.Pose:
 
 
 def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
-                   dense: vx.DilatedIndex, *, iterations: int = 16,
-                   damping: float = 1e-6, huber_delta: float = 0.5,
-                   max_dist: float = 2.0,
+                   dense: Optional[vx.DilatedIndex] = None, *,
+                   iterations: int = 16, damping: float = 1e-6,
+                   huber_delta: float = 0.5, max_dist: float = 2.0,
                    reassociate_every: int = 1) -> GicpResult:
-    """Gauss-Newton point-to-plane registration of F scans against one
-    shared target.  Fixed iteration count; correspondences are searched
-    every `reassociate_every` iterations.
+    """Gauss-Newton point-to-plane registration of F scans.  Fixed
+    iteration count; correspondences are searched every
+    `reassociate_every` iterations.
+
+    Two uses, as in the JAX original:
+      * odometry — every frame slot against one shared map target with
+        its DilatedIndex;
+      * loop-closure verification — each candidate against its own target
+        (F stacked targets, `dense=None`).
 
     Args:
       pts: (F, P, 3) source scans (contiguous float32).
       mask: (F, P) validity.
       init_poses: Pose with (F, 4) / (F, 3) leaves.
-      dense: the target's DilatedIndex.
     """
     F = pts.shape[0]
     pose = init_poses
@@ -136,8 +207,8 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
 
 def register(pts, mask, target: PlaneGrid, init_pose: se3.Pose,
              dense: vx.DilatedIndex, **kw) -> GicpResult:
-    """One scan ((P, 3), (P,), pose (4,)/(3,)): `register_batch` at F = 1,
-    with the slot axis dropped from the result."""
+    """One scan ((P, 3), (P,), pose (4,)/(3,)) against a shared target:
+    `register_batch` at F = 1, with the slot axis dropped."""
     res = register_batch(pts[None], mask[None], target,
                          se3.Pose(init_pose.q[None], init_pose.t[None]),
                          dense, **kw)

@@ -1,11 +1,13 @@
 """Device voxel-Gaussian grids and the dilated dense correspondence index.
 
-Port of the bulk-odometry half of veloslam_tpu/registration/voxel.py.
-Scans and maps are fixed-capacity tables of voxel Gaussians (count / mean
-/ covariance per occupied voxel) sorted by packed int32 key, built with a
-stable sort + segment sums.  Correspondences come from a dense
-(256, 256, 32) table pre-dilated over each cell's face neighbours: one
-gather per point.
+Port of veloslam_tpu/registration/voxel.py (grids, the dilated dense
+index, the binary-search lookups).  Scans and maps are fixed-capacity
+tables of voxel Gaussians (count / mean / covariance per occupied voxel)
+sorted by packed int32 key, built with a stable sort + segment sums; F
+scans build F stacked grids in one pass.  Correspondences come from a
+dense (256, 256, 32) table pre-dilated over each cell's face neighbours
+(one kernel gather per point), or, for stacked per-scan targets, from
+seven batched binary searches (`lookup_nearest`).
 
 Torch differs from JAX in a few ways this module handles explicitly:
 sorts are `stable=True` where JAX's were stable; writes JAX dropped under
@@ -21,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from veloslam_tpu_torch.core.segment import segment_min, segment_sum
+from veloslam_tpu_torch.registration.gather import gather_i32
 
 # Sentinel for missing/invalid voxel keys (sorts last).  It is also the
 # identity of an int32 segment minimum, so empty segments come out invalid.
@@ -30,7 +33,8 @@ INVALID_KEY = 2**31 - 1
 class VoxelGrid(NamedTuple):
     """Fixed-capacity voxel-Gaussian table, sorted by packed key.
 
-    Padding rows have key == INVALID_KEY and count == 0.
+    Padding rows have key == INVALID_KEY and count == 0.  F stacked grids
+    (per-scan targets) carry a leading F on every leaf.
     """
 
     keys: torch.Tensor        # (V,) int32, sorted ascending
@@ -42,7 +46,7 @@ class VoxelGrid(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.keys.shape[0]
+        return self.keys.shape[-1]
 
     @property
     def occupied(self) -> torch.Tensor:
@@ -73,25 +77,26 @@ def unpack_keys(keys, origin, voxel_size, bits: int = 10):
 
 
 def _segments(sk: torch.Tensor, capacity: int):
-    """Sorted keys → (valid mask, segment id per row); invalid rows and
-    voxels past `capacity` go to the trash segment `capacity`."""
+    """Sorted keys (..., P) → (valid mask, segment id per row along the
+    last axis); invalid rows and voxels past `capacity` go to the trash
+    segment `capacity`."""
     valid = sk != INVALID_KEY
-    new_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=sk.device),
-                         sk[1:] != sk[:-1]]) & valid
-    seg_id = torch.cumsum(new_seg.to(torch.int32), 0, dtype=torch.int32) - 1
+    first = torch.ones_like(sk[..., :1], dtype=torch.bool)
+    new_seg = torch.cat([first, sk[..., 1:] != sk[..., :-1]], dim=-1) & valid
+    seg_id = torch.cumsum(new_seg.to(torch.int32), -1, dtype=torch.int32) - 1
     seg_id = torch.where(valid, torch.clamp(seg_id, max=capacity), capacity)
     return valid, seg_id
 
 
 def _stats(sums: torch.Tensor, seg_keys, origin, voxel_size,
            bits: int = 10):
-    """(count, Σ rel, Σ rel·relᵀ) rows → (count, mean, cov), moments taken
-    relative to each voxel's centre."""
-    count = sums[:, 0]
-    denom = torch.clamp(count, min=1.0)[:, None]
-    mean_rel = sums[:, 1:4] / denom
-    cov = sums[:, 4:13].reshape(-1, 3, 3) / denom[..., None] \
-        - mean_rel[:, :, None] * mean_rel[:, None, :]
+    """(count, Σ rel, Σ rel·relᵀ) rows (..., 13) → (count, mean, cov),
+    moments taken relative to each voxel's centre."""
+    count = sums[..., 0]
+    denom = torch.clamp(count, min=1.0)[..., None]
+    mean_rel = sums[..., 1:4] / denom
+    cov = sums[..., 4:13].reshape(*sums.shape[:-1], 3, 3) / denom[..., None] \
+        - mean_rel[..., :, None] * mean_rel[..., None, :]
     mean = mean_rel + unpack_keys(seg_keys, origin, voxel_size, bits)
     return count, mean, cov
 
@@ -101,22 +106,87 @@ def build_grid(pts, mask, origin, voxel_size, *, capacity: int,
     """Build a voxel-Gaussian grid from (P, 3) points + validity mask:
     stable sort by key → segment ids → one 13-channel segment sum
     (count, first and second moments about the voxel centre).  Voxels past
-    `capacity` in key order are dropped."""
-    keys = pack_keys(pts, mask, origin, voxel_size, bits)
-    sk, order = torch.sort(keys, stable=True)
+    `capacity` in key order are dropped.
+
+    A batch of F independent scans, pts (F, P, 3) with origin (F, 3) and
+    voxel_size (F,), gives F stacked grids (every leaf with a leading F):
+    each row is sorted on its own and its segments are offset by
+    f·(capacity + 1), so the result equals F separate builds."""
+    if pts.dim() == 2:
+        g = build_grid(pts[None], mask[None], origin[None],
+                       voxel_size.reshape(1), capacity=capacity, bits=bits)
+        return VoxelGrid(*(x[0] for x in g))
+    F = pts.shape[0]
+    o = origin[:, None, :]
+    vs = voxel_size[:, None, None]
+    keys = pack_keys(pts, mask, o, vs, bits)                     # (F, P)
+    sk, order = torch.sort(keys, dim=-1, stable=True)
     valid, seg_id = _segments(sk, capacity)
+    n_seg = capacity + 1
+    seg = (seg_id + n_seg * torch.arange(F, dtype=torch.int32,
+                                         device=pts.device)[:, None]
+           ).reshape(-1)
     # Moments relative to each point's own voxel centre keep float32
     # covariances well-conditioned at map-scale coordinates.
-    sp = pts[order] - unpack_keys(sk, origin, voxel_size, bits)
-    w = valid.to(torch.float32)[:, None]
-    outer = (sp[:, :, None] * sp[:, None, :]).reshape(-1, 9)
-    payload = torch.cat([w, sp * w, outer * w], dim=1)         # (P, 13)
-    sums = segment_sum(payload, seg_id, capacity + 1)[:capacity]
-    seg_keys = segment_min(torch.where(valid, sk, INVALID_KEY), seg_id,
-                           capacity + 1)[:capacity]
-    count, mean, cov = _stats(sums, seg_keys, origin, voxel_size, bits)
+    sp = (torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+          - unpack_keys(sk, o, vs, bits))
+    w = valid.to(torch.float32)[..., None]
+    outer = (sp[..., :, None] * sp[..., None, :]).reshape(F, -1, 9)
+    payload = torch.cat([w, sp * w, outer * w], dim=-1)        # (F, P, 13)
+    sums = segment_sum(payload.reshape(-1, 13), seg, F * n_seg
+                       ).reshape(F, n_seg, 13)[:, :capacity]
+    seg_keys = segment_min(torch.where(valid, sk, INVALID_KEY).reshape(-1),
+                           seg, F * n_seg).reshape(F, n_seg)[:, :capacity]
+    seg_keys = seg_keys.contiguous()    # searched row by row by lookup()
+    count, mean, cov = _stats(sums, seg_keys, o, vs, bits)
     return VoxelGrid(keys=seg_keys, count=count, mean=mean, cov=cov,
                      origin=origin, voxel_size=voxel_size)
+
+
+def lookup(grid: VoxelGrid, query_keys) -> torch.Tensor:
+    """Rows of query keys in the grid (−1 where absent): a binary search
+    over the sorted keys, then one kernel gather of the key found there.
+
+    grid.keys (V,) with query_keys (Q,), or stacked grids (F, V) with
+    query_keys (F, Q) searched row by row."""
+    keys = grid.keys.reshape(-1, grid.keys.shape[-1])
+    q = query_keys.reshape(keys.shape[0], -1)
+    V = keys.shape[-1]
+    idx = torch.clamp(torch.searchsorted(keys, q), 0, V - 1).to(torch.int32)
+    row0 = V * torch.arange(keys.shape[0], dtype=torch.int32,
+                            device=keys.device)[:, None]
+    found = gather_i32(keys.reshape(-1), (idx + row0).reshape(-1)
+                       ).reshape(q.shape)
+    out = torch.where((found == q) & (q != INVALID_KEY), idx, -1)
+    return out.reshape(query_keys.shape)
+
+
+def lookup_nearest(grid: VoxelGrid, pts, mask, usable,
+                   bits: int = 10) -> torch.Tensor:
+    """Row of the nearest usable voxel Gaussian among each point's own
+    voxel and its 6 face neighbours (−1 if none), for F stacked grids
+    (leaves with a leading F) and points (F, P, 3): seven key searches in
+    one batched lookup, then the mean-distance argmin (first minimum wins,
+    as jnp.argmin)."""
+    F, P = mask.shape
+    keys = pack_keys(pts, mask, grid.origin[:, None, :],
+                     grid.voxel_size[:, None, None], bits)      # (F, P)
+    # Python-int offsets: a tensor of them would cost a host-to-device
+    # copy, which synchronizes the stream.
+    offsets = (0, 1, -1, 1 << bits, -(1 << bits), 1 << (2 * bits),
+               -(1 << (2 * bits)))
+    cand = torch.where((keys == INVALID_KEY)[:, None, :], INVALID_KEY,
+                       torch.stack([keys + o for o in offsets], dim=1))
+    idx7 = lookup(grid, cand.reshape(F, -1)).reshape(F, 7, P)
+    safe = torch.clamp(idx7, min=0).reshape(F, -1).long()
+    ok7 = (idx7 >= 0) & torch.gather(usable, 1, safe).reshape(F, 7, P)
+    mu7 = torch.gather(grid.mean, 1, safe[..., None].expand(-1, -1, 3)
+                       ).reshape(F, 7, P, 3)
+    d2 = torch.sum((pts[:, None] - mu7) ** 2, dim=-1)
+    d2 = torch.where(ok7, d2, float("inf"))
+    best = torch.argmin(d2, dim=1, keepdim=True)                 # (F, 1, P)
+    idx = torch.gather(idx7, 1, best)[:, 0]
+    return torch.where(ok7.any(dim=1), idx, -1)
 
 
 def merge_stats(grid: VoxelGrid, other: VoxelGrid, *,
@@ -276,7 +346,7 @@ def build_dilated_index(grid: VoxelGrid, usable, *, shape=(256, 256, 32),
 def lookup_dilated(grid: VoxelGrid, dil: DilatedIndex, pts, mask,
                    bits: int = 10) -> torch.Tensor:
     """Row of a usable voxel for each point via the pre-dilated table: one
-    flat gather per point (−1 for misses)."""
+    kernel gather per point (−1 for misses)."""
     half = 1 << (bits - 1)
     g = (torch.floor((pts - grid.origin) / grid.voxel_size).to(torch.int32)
          + half - dil.lo)                                       # (..., 3)
@@ -285,8 +355,8 @@ def lookup_dilated(grid: VoxelGrid, dil: DilatedIndex, pts, mask,
     flat = ((torch.clamp(g[..., 0], 0, X - 1) * Y
              + torch.clamp(g[..., 1], 0, Y - 1)) * Z
             + torch.clamp(g[..., 2], 0, Z - 1))
-    idx = dil.table.reshape(-1)[flat.long()]
-    return torch.where(inside, idx, -1)
+    idx = gather_i32(dil.table.reshape(-1), flat.reshape(-1))
+    return torch.where(inside, idx.reshape(flat.shape), -1)
 
 
 # --- closed-form 3x3 symmetric eigen-analysis --------------------------------

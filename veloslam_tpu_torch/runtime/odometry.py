@@ -294,6 +294,7 @@ class StreamingOdometry:
                                 map_capacity=map_capacity,
                                 max_frames=max_frames, voxel_size=voxel_size)
         self.batches_fed = 0
+        self._est_frames: Optional[int] = None
         self._stream_t0_us: Optional[int] = None
         self._open_anchor: Optional[int] = None
         self._open_start_dev: Optional[torch.Tensor] = None
@@ -357,6 +358,9 @@ class StreamingOdometry:
         need_cap = (int(len(pkts) / packets_per_second(self.model)
                         * self.frame_rate_hz * 1.2)
                     + 2 * self.MAX_FRAMES_BATCH + 16)
+        # Host-known frame estimate of this recording: sizes the
+        # end-of-stream closure budget (runtime.pipeline.sweep_budget).
+        self._est_frames = need_cap
         self.ensure_capacity(-(-need_cap // 1024) * 1024)
         segments = []
         off = 0
@@ -427,13 +431,22 @@ class StreamingOdometry:
         batch_rel = f32((anchor - self._stream_t0_us) * 1e-6)
         trk = [torch.as_tensor(track_window[k], device=dev)
                for k in ("rel_s", "q", "t", "v")]
-        self.state, open_start = odometry_step_batched(
-            self.state, torch.as_tensor(pkts, device=dev), self.calib, rel,
-            carry_start, batch_rel, *trk, model=self.model,
-            reg_points=self.reg_points, reg_iterations=self.reg_iterations,
-            max_frames_batch=self._feed_slots or self.MAX_FRAMES_BATCH,
-            reassociate_every=self.reassociate_every,
-            map_decay=self.map_decay)
+        open_start = self._step(
+            torch.as_tensor(pkts, device=dev), rel, carry_start, batch_rel,
+            trk, max_frames_batch=self._feed_slots or self.MAX_FRAMES_BATCH)
         self.batches_fed += 1
         self._open_start_dev = open_start
         self._open_anchor = anchor
+
+    def _step(self, pkts, rel, carry_start, batch_rel, trk, *,
+              max_frames_batch: int) -> torch.Tensor:
+        """One device step on the prepared batch; updates the state and
+        returns the open-frame start."""
+        self.state, open_start = odometry_step_batched(
+            self.state, pkts, self.calib, rel, carry_start, batch_rel, *trk,
+            model=self.model, reg_points=self.reg_points,
+            reg_iterations=self.reg_iterations,
+            max_frames_batch=max_frames_batch,
+            reassociate_every=self.reassociate_every,
+            map_decay=self.map_decay)
+        return open_start
