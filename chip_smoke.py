@@ -11,14 +11,17 @@ code is non-zero:
                 turn TF32 off for float32 matmuls and convolutions.
   2. build    — compile csrc/normal_equations.cu and csrc/gather.cu with
                 nvcc, one process per source, started together.
-  3. kernel   — the normal-equations kernel vs its plain torch version at
-                the bulk path's (F, P) = (96, 16384), closure
-                verification's (128, 8192), and (3, 1000), (1, 1);
-                bitwise repeatability; kernel and plain times at
-                (96, 16384).  The two gather kernels vs their plain
-                versions, bitwise, at the Pallas probe's shapes, the bulk
-                path's, closure verification's and M = 1000 and 1;
-                kernel and plain times and GB/s.
+  3. kernel   — the normal-equations kernel vs its plain torch versions
+                at the bulk path's (F, P) = (96, 16384), closure
+                verification's (128, 8192), and (3, 1000), (1, 1): NE
+                only, and the whole GN step (gn_iteration) with a slot
+                rejected for few hits, a clamped slot and a NaN slot;
+                bitwise repeatability; times at (96, 16384), 80% and 56%
+                hits, and (128, 8192).  The two gather kernels vs their
+                plain versions, bitwise, at the Pallas probe's shapes, the
+                bulk path's, closure verification's and M = 1000 and 1.
+                Every time beside its bound and, for the gathers, the
+                library call torch.index_select.
   4. drive    — StreamingOdometry on two simulated 1.2 s HDL-32 drives
                 (INS at truth; INS drifting 0.3 m/s) with the production
                 registration config, checked against the simulator's truth
@@ -27,7 +30,8 @@ code is non-zero:
                 normal-equations launch per GN iteration and one launch of
                 each gather kernel per association block.
   5. bulk     — one full-width odometry_step_batched (16384 packets,
-                96 frame slots) timed from a warm map, launches counted.
+                96 frame slots) timed from a warm map, launches counted;
+                gather_i32 on lookup_dilated's indices of one warm step.
   6. fullslam — FullSlam.run_device + finalize_device on bench.py's
                 7 s loop drive (INS drifting 1 m/s) at the production
                 width, checked against the JAX package's golden
@@ -75,6 +79,16 @@ GATHER_RECORDED = {"gather_i32": (1 << 21, 1572864),
                    "gather_rows8": (65536, 1572864)}
 TIMED_RUNS = 20
 FULLSLAM_RUNS = 5
+# The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
+# device-memory bytes/s and float32 FLOP/s outside the tensor cores.  A
+# kernel's bound is the larger of the bytes it must move (each input byte
+# read once, each output byte written once) and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# Float operations per point with a correspondence in the normal
+# equations: pose transform 21, residual 8, Huber weight 3, Jacobian 9,
+# the 29 sums 69 (an FMA counts 2).
+NE_FLOP_PER_HIT = 110
 # Corrected trajectory against the JAX golden: x, y within 5 cm; z within
 # Z_LIMIT_M.  On this drive the stream's height drifts by metres in both packages, and the
 # port's z lands 0.006-0.137 m from the golden's on the card (0.141 m
@@ -108,17 +122,45 @@ def _kernel_us(prof) -> float:
                if e.device_type == DeviceType.CUDA)
 
 
-def _device_us(fn, calls: int = 20) -> float:
+def _device_us(fn, calls: int = 20, tries: int = 3) -> float:
     """Device time per call of `fn()` in µs: the kernels torch.profiler
-    sees over `calls` back-to-back calls (host time excluded)."""
+    sees over `calls` back-to-back calls (host time excluded).  A trace
+    that caught no kernel (it happens on the card) is taken again, up to
+    `tries` times; 0 if none caught one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return _kernel_us(prof) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = _kernel_us(prof) / calls
+        if us > 0:
+            return us
+    return 0.0
+
+
+def _bound(nbytes: float, flops: float = 0.0) -> tuple:
+    """(bound_ms, bound_by): the least time the card could take."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def _share(bound_ms: float, dev_us: float) -> str:
+    """The device time's share of the bound, as printed."""
+    if dev_us <= 0:
+        return "the profiler saw no kernel"
+    return f"{bound_ms * 1e3 / dev_us:.0%} of the bound"
+
+
+def _ne_bound(F: int, P: int, hits: int) -> tuple:
+    """The normal equations' bound: each hit flag, and p, μ, n (36 B) of
+    each point with a correspondence; per slot the pose in (28 B) and H,
+    b, the sums and the new pose out (~220 B)."""
+    return _bound(F * P + 36 * hits + 248 * F, NE_FLOP_PER_HIT * hits)
 
 
 def phase_device() -> str:
@@ -180,13 +222,21 @@ def _check_launches(where: str, got: dict, want: dict, device) -> None:
         raise AssertionError(f"{where}: kernel launches {got}, want {want}")
 
 
-def _ne_inputs(F: int, P: int, seed: int, device, max_dist: float = 2.0):
+def _ne_inputs(F: int, P: int, seed: int, device, max_dist: float = 2.0,
+               hit_rate: float = 0.8, edge_slots: bool = False):
     """Seeded inputs shaped like one GN iteration: posed points out to
-    60 m, unit normals, ~80% hits, and means placed along the normal so
-    residuals span both Huber regimes (|r| ≶ 0.5) and ~10% exceed the
+    60 m, unit normals, `hit_rate` hits, and means placed along the normal
+    so residuals span both Huber regimes (|r| ≶ 0.5) and ~10% exceed the
     max_dist gate.  No |r| lies within 0.02 of max_dist: the gate is a
     threshold, and float32 rounding may put a residual that sits on it on
-    either side in the kernel and the plain version."""
+    either side in the kernel and the plain version.
+
+    With `edge_slots` (and F ≥ 3) the first three slots test the step's
+    guards, as tests/torch_helpers.with_edge_slots does: slot 0 has 5
+    hits (n_hit ≤ 10: step rejected); slot 1's means sit at its posed
+    points moved 1.5 m along x (its step is that translation, clamped to
+    1 m); slot 2 has a NaN in a flagged point (H, b and err NaN, the
+    factor fails: step rejected)."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-60, 60, (F, P, 3))
     axis = rng.normal(size=(F, 3))
@@ -209,7 +259,13 @@ def _ne_inputs(F: int, P: int, seed: int, device, max_dist: float = 2.0):
     tangent = rng.normal(0, 0.3, (F, P, 3))
     tangent -= np.sum(tangent * n, -1, keepdims=True) * n
     mu = posed - n * r[..., None] + tangent
-    hit = (rng.random((F, P)) < 0.8).astype(np.uint8)
+    hit = (rng.random((F, P)) < hit_rate).astype(np.uint8)
+    if edge_slots and F >= 3:
+        hit[0] = 0
+        hit[0, :5] = 1
+        mu[1] = posed[1] + np.array([1.5, 0.0, 0.0])
+        hit[2, 0] = 1
+        pts[2, 0, 0] = np.nan
 
     def dev(a, dtype=np.float32):
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
@@ -217,53 +273,213 @@ def _ne_inputs(F: int, P: int, seed: int, device, max_dist: float = 2.0):
     return (dev(pts), dev(q), dev(t), dev(mu), dev(n), dev(hit, np.uint8))
 
 
-def phase_kernel(device) -> dict:
+def _same_bits(a, b) -> bool:
+    """Bitwise equality (NaN payloads included)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _diff(name: str, x, r, rel: bool = False) -> float:
+    """max |x − r| (relative to |r| with `rel`) over the entries that are
+    not NaN; NaN entries must agree."""
+    nan = torch.isnan(r)
+    if not torch.equal(torch.isnan(x), nan):
+        raise AssertionError(f"{name}: NaN entries differ")
+    d = (x - r).abs()
+    if rel:
+        d = d / r.abs().clamp(min=1e-30)
+    d = d[~nan]
+    return d.max().item() if d.numel() else 0.0
+
+
+def _ne_diff(name: str, F: int, P: int, x, r, rel: bool = False) -> float:
+    """_diff held to the normal equations' tolerance: |Δ| ≤ 1e-4·max|ref|
+    + 1e-3 (float32 sums in another order), or 1e-4 relative."""
+    d = _diff(name, x, r, rel)
+    finite = r[~torch.isnan(r)].abs()
+    lim = 1e-4 if rel else 1e-4 * (finite.max().item()
+                                   if finite.numel() else 0) + 1e-3
+    if not d <= lim:
+        raise AssertionError(f"{name} at {F}x{P}: {'rel ' if rel else ''}"
+                             f"|d| {d} > {lim}")
+    return d
+
+
+def _check_ne(F: int, P: int, args) -> dict:
+    """NE-only mode against normal_equations_plain: |Δ| ≤ 1e-4·max|ref| +
+    1e-3 on H and b (float32 sums in another order), 1e-4 relative on the
+    sums, n_hit exact, two launches bitwise equal."""
     from veloslam_tpu_torch.registration import normal_equations as ne
+    got = ne.fused_normal_equations(*args)
+    again = ne.fused_normal_equations(*args)
+    ref = ne.normal_equations_plain(*args)
+    torch.cuda.synchronize()
+    if not all(_same_bits(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"NE kernel not bitwise repeatable at {F}x{P}")
+    errs = {name: _ne_diff(name, F, P, got[i], ref[i])
+            for i, name in enumerate(("H", "b"))}
+    errs.update({name + "_rel": _ne_diff(name, F, P, got[i], ref[i], True)
+                 for i, name in ((2, "err_sum"), (3, "w_sum"))})
+    if not torch.equal(got[4], ref[4]):
+        raise AssertionError(f"n_hit differs at {F}x{P}")
+    return errs
+
+
+def _check_gn(F: int, P: int, args, damping: float = 1e-6) -> dict:
+    """gn_iteration's kernel against gn_iteration_plain: the ok and clamp
+    decisions exactly (and the edge slots' expected ones), n_hit exact,
+    H, b and err at _check_ne's tolerances with NaNs counted equal, a
+    rejected slot's pose unchanged bitwise, two calls bitwise equal.  The
+    new pose is held within 1e-5 m and 1e-6 per quaternion component of
+    the plain step taken from the kernel's own H, b and n_hit: both solve
+    the same float32 6×6 system, with another Cholesky.  The fully plain
+    pose also differs by H's sum order times the conditioning of H; its
+    offset is printed."""
+    from veloslam_tpu_torch.core import se3
+    from veloslam_tpu_torch.registration import normal_equations as ne
+    pts, q, t, mu, n, hit = args
+    pose = se3.Pose(q, t)
+    got = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping)
+    again = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping)
+    ref = ne.gn_iteration_plain(pts, pose, mu, n, hit, damping=damping)
+    own = ne._gn_step(pose, got.H, got.b, got.n_hit, damping)
+    torch.cuda.synchronize()
+
+    def leaves(g):
+        return (g.pose.q, g.pose.t, g.H, g.b, g.err, g.n_hit, g.step)
+    if not all(_same_bits(a, b) for a, b in zip(leaves(got), leaves(again))):
+        raise AssertionError(f"gn_iteration not bitwise repeatable at {F}x{P}")
+    if not torch.equal(got.step, ref.step):
+        raise AssertionError(f"step decisions differ at {F}x{P}: "
+                             f"{got.step.tolist()} vs {ref.step.tolist()}")
+    want = [0, 2, 0] if F >= 3 else [0]
+    if got.step[:len(want)].tolist() != want:
+        raise AssertionError(f"edge slots at {F}x{P}: steps "
+                             f"{got.step[:len(want)].tolist()}, want {want}")
+    if not torch.equal(got.n_hit, ref.n_hit):
+        raise AssertionError(f"gn_iteration n_hit differs at {F}x{P}")
+    kept = got.step == 0
+    if not (_same_bits(got.pose.q[kept], q[kept])
+            and _same_bits(got.pose.t[kept], t[kept])):
+        raise AssertionError(f"a rejected step moved the pose at {F}x{P}")
+    errs = {"gn_H": _ne_diff("H", F, P, got.H, ref.H),
+            "gn_b": _ne_diff("b", F, P, got.b, ref.b),
+            "gn_err_rel": _ne_diff("err", F, P, got.err, ref.err, True)}
+    errs["pose_t"] = (got.pose.t - own.t).abs().max().item()
+    errs["pose_q"] = (got.pose.q - own.q).abs().max().item()
+    if not (errs["pose_t"] <= 1e-5 and errs["pose_q"] <= 1e-6):
+        raise AssertionError(f"pose at {F}x{P}: |dt| {errs['pose_t']} m, "
+                             f"|dq| {errs['pose_q']} from the plain step on "
+                             "the kernel's H, b")
+    errs["plain_pose_t"] = (got.pose.t - ref.pose.t).abs().max().item()
+    errs["plain_pose_q"] = (got.pose.q - ref.pose.q).abs().max().item()
+    return errs
+
+
+def phase_kernel(device) -> dict:
+    """The normal-equations kernel in both modes against its plain
+    versions at every shape of the paths, then times at the bulk shape;
+    returns its kernel record (gn_iteration, as the paths call it)."""
     record = {}
     for F, P in KERNEL_SHAPES:
-        args = _ne_inputs(F, P, seed=F * 100003 + P, device=device)
-        got = ne.fused_normal_equations(*args)
-        again = ne.fused_normal_equations(*args)
-        ref = ne.normal_equations_plain(*args)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"kernel not bitwise repeatable at {F}x{P}")
-        H, b, err_sum, w_sum, n_hit = got
-        Hr, br, er, wr, nr = ref
-        errs = {}
-        for name, x, r in (("H", H, Hr), ("b", b, br)):
-            d = (x - r).abs().max().item()
-            lim = 1e-4 * r.abs().max().item() + 1e-3
-            if not d <= lim:
-                raise AssertionError(f"{name} at {F}x{P}: |d| {d} > {lim}")
-            errs[name] = d
-        for name, x, r in (("err_sum", err_sum, er), ("w_sum", w_sum, wr)):
-            rel = ((x - r).abs() / r.abs().clamp(min=1e-30)).max().item()
-            if not rel <= 1e-4:
-                raise AssertionError(f"{name} at {F}x{P}: rel {rel} > 1e-4")
-            errs[name + "_rel"] = rel
-        if not torch.equal(n_hit, nr):
-            raise AssertionError(f"n_hit differs at {F}x{P}")
-        print(f"[kernel] F={F} P={P} ok, bitwise repeatable; "
+        args = _ne_inputs(F, P, seed=F * 100003 + P, device=device,
+                          edge_slots=True)
+        errs = {**_check_ne(F, P, args), **_check_gn(F, P, args)}
+        print(f"[kernel] F={F} P={P} NE and GN step ok, steps as designed "
+              "on the edge slots, bitwise repeatable; "
               + " ".join(f"{k}={v:.3g}" for k, v in errs.items()),
               flush=True)
         if (F, P) == KERNEL_SHAPES[0]:
             record["max_abs_err"] = max(errs["H"], errs["b"])
-            record["ms"] = _events_ms(
-                lambda: ne.fused_normal_equations(*args), TIMED_RUNS, 10)
-            record["plain_ms"] = _events_ms(
-                lambda: ne.normal_equations_plain(*args), TIMED_RUNS, 10)
-            # The kernel reads each hit flag, and p, μ, n (36 B) of hits.
-            read = F * P + 36 * int(args[5].sum())
-            gbs = read / (record["ms"] * 1e-3) / 1e9
-            print(f"[kernel] F={F} P={P}: kernel {record['ms']:.4f} ms "
-                  f"per call (~{gbs:.0f} GB/s of the {read / 1e6:.1f} MB "
-                  "it reads), plain "
-                  f"{record['plain_ms']:.4f} ms (median of {TIMED_RUNS} "
-                  "runs of 10 calls); device "
-                  f"{_device_us(lambda: ne.fused_normal_equations(*args)):.2f}"
-                  " µs per call (profiler)", flush=True)
+    record.update(time_normal_equations(device))
     return record
+
+
+def time_normal_equations(device, step: bool = True) -> dict:
+    """Times of the normal-equations kernel at the paths' shapes (bulk
+    and closure verification), at chip_smoke's 80% hits and, for the bulk
+    shape, the warm map's 56% (PERF.md §4): NE-only, and with `step` the
+    whole GN step (gn_iteration, as the paths call it), each beside its
+    plain version.  No single PyTorch call computes the function: no
+    library time.  Returns the record's times, from the bulk shape at 80%
+    (the GN step; NE-only without `step`, which also times a tree whose
+    wrapper has no gn_iteration, for a comparison in one call)."""
+    from veloslam_tpu_torch.core import se3
+    from veloslam_tpu_torch.registration import normal_equations as ne
+    record = {}
+    for F, P, rate in (KERNEL_SHAPES[0] + (0.8,), KERNEL_SHAPES[0] + (0.56,),
+                       KERNEL_SHAPES[1] + (0.8,)):
+        args = _ne_inputs(F, P, seed=F * 100003 + P, device=device,
+                          hit_rate=rate)
+        pts, q, t, mu, n, hit = args
+        pose = se3.Pose(q, t)
+        bound_ms, bound_by = _ne_bound(F, P, int(hit.sum()))
+        calls = {"NE": (lambda: ne.fused_normal_equations(*args),
+                        lambda: ne.normal_equations_plain(*args))}
+        if step:
+            calls["GN step"] = (
+                lambda: ne.gn_iteration(pts, pose, mu, n, hit),
+                lambda: ne.gn_iteration_plain(pts, pose, mu, n, hit))
+        for mode, (kernel, plain) in calls.items():
+            times = {"ms": _events_ms(kernel, TIMED_RUNS, 10),
+                     "plain_ms": _events_ms(plain, TIMED_RUNS, 10)}
+            dev_us = _device_us(kernel)
+            print(f"[kernel] {mode} F={F} P={P} hits {rate:.0%}: kernel "
+                  f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms "
+                  f"per call (median of {TIMED_RUNS} runs of 10 calls); "
+                  f"device {dev_us:.2f} µs per call (profiler); bound "
+                  f"{bound_ms * 1e3:.2f} µs ({bound_by}), "
+                  f"{_share(bound_ms, dev_us)}", flush=True)
+            if (F, P, rate) == KERNEL_SHAPES[0] + (0.8,):
+                record.update(times, bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None)
+    # What the card reads in practice: torch.sum over as many bytes as p,
+    # μ and n and the flags of the bulk shape, every sector of which the
+    # kernel reads when hits are scattered.
+    F, P = KERNEL_SHAPES[0]
+    x = torch.zeros(F * P * 37 // 4, dtype=torch.float32, device=device)
+    print(f"[kernel] torch.sum over {x.numel() * 4 / 1e6:.1f} MB (p, μ, n "
+          f"and flags at {F}x{P}): device {_device_us(x.sum):.2f} µs per "
+          "call (profiler)", flush=True)
+    return record
+
+
+def _time_gather(name: str, table, idx) -> dict:
+    """Times of one gather kernel beside its plain version and the
+    library call `torch.index_select(table, 0, idx)` (int32 idx; a
+    yardstick only, the port never calls it), and its bound: each index
+    read, each output written, and each table row the indices touch read
+    once (rows that L2 serves again are not counted)."""
+    from veloslam_tpu_torch.registration import gather as ga
+    kernel = getattr(ga, name)
+    plain = getattr(ga, f"{name}_plain")
+
+    def library():
+        return torch.index_select(table, 0, idx)
+
+    m = idx.shape[0]
+    row_bytes = table[:1].numel() * table.element_size()
+    nbytes = m * (4 + row_bytes) + torch.unique(idx).numel() * row_bytes
+    bound_ms, bound_by = _bound(nbytes)
+    out = {"ms": _events_ms(lambda: kernel(table, idx), TIMED_RUNS, 10),
+           "plain_ms": _events_ms(lambda: plain(table, idx), TIMED_RUNS, 10),
+           "library_ms": _events_ms(library, TIMED_RUNS, 10),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    dev = {k: _device_us(fn) for k, fn in (
+        ("kernel", lambda: kernel(table, idx)),
+        ("plain", lambda: plain(table, idx)), ("library", library))}
+    rate = (f"{nbytes / dev['kernel'] / 1e3:.0f} GB/s"
+            if dev["kernel"] > 0 else "no GB/s")
+    out["line"] = (
+        f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+        f"index_select {out['library_ms']:.4f} ms per call (median of "
+        f"{TIMED_RUNS} runs of 10 calls); device µs per call (profiler): "
+        f"kernel {dev['kernel']:.2f} ({rate} of the {nbytes / 1e6:.1f} MB "
+        f"it must move), plain {dev['plain']:.2f}, index_select "
+        f"{dev['library']:.2f}; bound {bound_ms * 1e3:.2f} µs ({bound_by}), "
+        f"{_share(bound_ms, dev['kernel'])}")
+    return out
 
 
 def phase_gather(device) -> dict:
@@ -272,8 +488,8 @@ def phase_gather(device) -> dict:
     from veloslam_tpu_torch.registration import gather as ga
     rng = np.random.default_rng(7)
     records = {}
-    for name, shapes, row_bytes in (("gather_i32", GATHER_SHAPES, 4),
-                                    ("gather_rows8", ROW_SHAPES, 32)):
+    for name, shapes in (("gather_i32", GATHER_SHAPES),
+                         ("gather_rows8", ROW_SHAPES)):
         kernel = getattr(ga, name)
         plain = getattr(ga, f"{name}_plain")
         for n, m in shapes:
@@ -293,22 +509,10 @@ def phase_gather(device) -> dict:
             err = (got - ref).abs().max().item()
             line = f"[kernel] {name} table {n} M {m}: bitwise equal"
             if m >= 131072:
-                ms = _events_ms(lambda: kernel(table, idx), TIMED_RUNS, 10)
-                plain_ms = _events_ms(lambda: plain(table, idx), TIMED_RUNS,
-                                      10)
-                # Bytes each output moves: its index, a table read, a write.
-                dev_us = _device_us(lambda: kernel(table, idx))
-                plain_us = _device_us(lambda: plain(table, idx))
-                rate = (f"{m * (4 + 2 * row_bytes) / dev_us / 1e3:.0f} GB/s"
-                        if dev_us > 0 else "the profiler saw no kernel")
-                line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per "
-                         f"call (median of {TIMED_RUNS} runs of 10 calls); "
-                         f"device {dev_us:.2f} µs kernel ({rate}; bytes of "
-                         f"index + table + output), {plain_us:.2f} µs plain "
-                         "(profiler)")
+                times = _time_gather(name, table, idx)
+                line += "; " + times.pop("line")
                 if (n, m) == GATHER_RECORDED[name]:
-                    records[name] = {"max_abs_err": err, "ms": ms,
-                                     "plain_ms": plain_ms}
+                    records[name] = {"max_abs_err": err, **times}
             print(line, flush=True)
     return records
 
@@ -431,9 +635,22 @@ def phase_bulk(device, smi: str, reg: dict) -> None:
     _check_launches("bulk (5 steps)", _launches(), {
         "fused_normal_equations": 5 * reg["reg_iterations"],
         "gather_i32": 5 * blocks, "gather_rows8": 5 * blocks}, device)
-    after, _, res = odo._batched_core(
-        warm, pkts, calib, rel_s, zero, zero, track_rel, track_q, track_t,
-        track_v, min_points=4, min_planarity=0.35, **kw)
+    # One more step, with lookup_dilated's gather inputs recorded: a real
+    # index stream for the gather kernel's times.
+    from veloslam_tpu_torch.registration import voxel as vx
+    seen, gather_i32 = [], vx.gather_i32
+
+    def recording(table, idx):
+        seen.append((table, idx))
+        return gather_i32(table, idx)
+
+    vx.gather_i32 = recording
+    try:
+        after, _, res = odo._batched_core(
+            warm, pkts, calib, rel_s, zero, zero, track_rel, track_q,
+            track_t, track_v, min_points=4, min_planarity=0.35, **kw)
+    finally:
+        vx.gather_i32 = gather_i32
     n_done = int(res.done.sum())
     matched = res.n_matched[res.done].float().median().item()
     if not (n_done > 0 and torch.isfinite(after.traj_t).all()
@@ -443,6 +660,18 @@ def phase_bulk(device, smi: str, reg: dict) -> None:
           f"per batch, median n_matched {matched:.0f}: {ms:.3f} ms/batch, "
           f"{n_done / (ms * 1e-3):.1f} frames/s (median of 5, CUDA events; "
           f"{smi})", flush=True)
+    if device.type == "cuda":
+        from veloslam_tpu_torch.registration import gather as ga
+        table, idx = seen[0]
+        if not torch.equal(ga.gather_i32(table, idx),
+                           ga.gather_i32_plain(table, idx)):
+            raise AssertionError("gather_i32 on lookup_dilated's indices: "
+                                 "not bitwise equal to the plain version")
+        print(f"[bulk] gather_i32 on lookup_dilated's indices of one warm "
+              f"step (table {table.numel()}, M {idx.numel()}, "
+              f"{torch.unique(idx).numel()} distinct): bitwise equal; "
+              f"{_time_gather('gather_i32', table, idx)['line']}",
+              flush=True)
 
 
 def _fullslam_drive(device, drive: dict, model: str):
@@ -647,9 +876,7 @@ def main() -> int:
         {"name": "fused_normal_equations", "route": "cuda",
          "source": src + "normal_equations.cu",
          "replaces": "veloslam_tpu/registration/pallas_kernels.py:84",
-         "launches": launches["fused_normal_equations"],
-         "max_abs_err": record["max_abs_err"], "ms": record["ms"],
-         "plain_ms": record["plain_ms"]},
+         "launches": launches["fused_normal_equations"], **record},
         {"name": "gather_i32", "route": "cuda", "source": src + "gather.cu",
          "replaces": "scripts/bench_pallas_gather.py:54",
          "launches": launches["gather_i32"],

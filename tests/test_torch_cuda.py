@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import normal_equation_slots, port_args
+from torch_helpers import normal_equation_slots, port_args, with_edge_slots
 from torch_helpers import small_threads  # noqa: F401
+from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.decode import calibration as cal
 from veloslam_tpu_torch.decode.decode import DeviceCalib
 from veloslam_tpu_torch.io import simulate as sim
@@ -57,6 +58,69 @@ def test_kernel_matches_plain_on_card(card, F, P):
     assert torch.equal(got[4], ref[4])
 
 
+def _nan_equal_close(x, r, lim):
+    """NaN entries equal, the rest within `lim`."""
+    nan = torch.isnan(r)
+    assert torch.equal(torch.isnan(x), nan)
+    assert ((x - r).abs()[~nan] <= lim).all()
+
+
+@pytest.mark.parametrize("F,P", [(96, 16384), (128, 8192), (3, 1000),
+                                 (3, 1001), (1, 1), (5, 0)])
+def test_gn_iteration_matches_plain_on_card(card, F, P):
+    """The fused step against gn_iteration_plain (P = 1001 and 1 take the
+    kernel's scalar-load instance), with the edge slots of
+    with_edge_slots (rejected for few hits, clamped, NaN): decisions and
+    n_hit exact; H, b at the NE tolerance with NaNs equal; the pose within
+    1e-5 m / 1e-6 of the plain step on the kernel's own H, b (the same
+    float32 6×6 system, another Cholesky); a rejected pose unchanged; two
+    calls bitwise equal, one launch counted each."""
+    slots = normal_equation_slots(F, P, seed=F + P)
+    if F >= 3 and P:
+        slots = with_edge_slots(*slots)
+    pts, q, t, mu, n, hit = [a.to(card) for a in port_args(*slots)]
+    pose = se3.Pose(q, t)
+    before = ne.LAUNCHES
+    got = ne.gn_iteration(pts, pose, mu, n, hit)
+    again = ne.gn_iteration(pts, pose, mu, n, hit)
+    torch.cuda.synchronize()
+    assert ne.LAUNCHES == before + 2
+    ref = ne.gn_iteration_plain(pts, pose, mu, n, hit)
+    own = ne._gn_step(pose, got.H, got.b, got.n_hit, 1e-6)
+    for a, b in zip((*got.pose, *got[1:]), (*again.pose, *again[1:])):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    assert torch.equal(got.step, ref.step)
+    assert torch.equal(got.n_hit, ref.n_hit)
+    if F >= 3 and P:
+        assert got.step[:3].tolist() == [0, 2, 0]
+    else:
+        assert got.step.tolist() == [0] * F
+    for x, r in ((got.H, ref.H), (got.b, ref.b)):
+        finite = r[~torch.isnan(r)]
+        _nan_equal_close(x, r, 1e-4 * (finite.abs().max().item()
+                                       if finite.numel() else 0) + 1e-3)
+    kept = got.step == 0
+    assert torch.equal(got.pose.q[kept], q[kept])
+    assert torch.equal(got.pose.t[kept], t[kept])
+    assert (got.pose.t - own.t).abs().max().item() <= 1e-5
+    assert (got.pose.q - own.q).abs().max().item() <= 1e-6
+
+
+def test_normal_equations_reject_misaligned_on_card(card):
+    """The kernel loads 16-byte vectors: a contiguous view that starts
+    4 bytes into its storage is refused, not read misaligned."""
+    pts, q, t, mu, n, hit = [a.to(card) for a in
+                             port_args(*normal_equation_slots(2, 64, seed=9))]
+    shifted = torch.empty(pts.numel() + 1, device=card)[1:].view(pts.shape)
+    shifted.copy_(pts)
+    with pytest.raises(ValueError, match="aligned"):
+        ne.fused_normal_equations(shifted, q, t, mu, n, hit)
+    with pytest.raises(ValueError, match="aligned"):
+        ne.gn_iteration(shifted, se3.Pose(q, t), mu, n, hit)
+
+
 def test_odometry_on_card_matches_cpu(card):
     world = sim.World.demo(seed=8, extent=40.0, n_posts=60, n_walls=24)
     seq = sim.generate_sequence(duration_s=0.8, model="hdl32", seed=23,
@@ -82,11 +146,13 @@ def test_odometry_on_card_matches_cpu(card):
 @pytest.mark.parametrize("name,N,M", [
     ("gather_i32", 1 << 21, 1), ("gather_i32", 1 << 21, 1000),
     ("gather_i32", 65536, 4097), ("gather_i32", 7, 0),
+    ("gather_i32", 1 << 21, 1572867),
     ("gather_rows8", 32768, 1), ("gather_rows8", 32768, 1000),
     ("gather_rows8", 1000, 4097), ("gather_rows8", 3, 0)])
 def test_gather_kernels_match_plain_on_card(card, name, N, M):
     """Bitwise equal to table[idx] at sizes that are no multiple of a
-    block; LAUNCHES counts each launch (an empty gather launches none)."""
+    block (M = 1572867: the bulk path's M + 3, a scalar tail); LAUNCHES
+    counts each launch (an empty gather launches none)."""
     rng = np.random.default_rng(N + M)
     if name == "gather_i32":
         table = rng.integers(-1, 32768, N).astype(np.int32)
@@ -117,6 +183,8 @@ def test_gather_wrappers_check_inputs_on_card(card):
                       idx.long())
     with pytest.raises(ValueError):
         ga.gather_rows8(rows, idx[::2])
+    with pytest.raises(ValueError, match="aligned"):
+        ga.gather_i32(torch.zeros(8, dtype=torch.int32, device=card), idx[1:])
 
 
 def test_small_fullslam_on_card_matches_jax_golden(card):

@@ -95,6 +95,44 @@ def test_register_batch_matches_jax(scene):
     assert n(got.n_matched).min() > 500
 
 
+def test_register_batch_one_iteration_guards_match_jax(scene):
+    """One GN iteration, slot by slot against JAX: slot 0 starts 0.9 m off
+    in y (a ~1.3 m step that the clamp cuts to 1 m), slot 1 keeps 8 valid
+    points (n_hit ≤ 10: the step is rejected and the pose stays), slot 2
+    takes a full step.  The port's step decisions are read from
+    normal_equations.gn_iteration at the same inputs.  Tolerances as
+    test_register_batch_matches_jax."""
+    from veloslam_tpu_torch.registration import normal_equations as ne
+    _, target, dense, src, mask = scene
+    mask = mask.copy()
+    mask[1] = False
+    mask[1, :8] = True
+    q0 = np.tile(np.array([1.0, 0, 0, 0], np.float32), (3, 1))
+    t0 = np.zeros((3, 3), np.float32)
+    t0[0, 1] = -0.9
+    want = jgicp.register_batch(
+        jnp.asarray(src), jnp.asarray(mask), target,
+        jse3.Pose(jnp.asarray(q0), jnp.asarray(t0)), dense, iterations=1)
+    ttarget, tdense = _port_target(target, dense)
+    init = se3.Pose(t(q0), t(t0))
+    got = gicp.register_batch(t(src), t(mask), ttarget, init, tdense,
+                              iterations=1)
+    mu, nrm, hit = gicp.associate(t(src), t(mask), init, ttarget, tdense)
+    step = ne.gn_iteration(t(src), init, mu, nrm, hit.view(torch.uint8)).step
+    assert step.tolist() == [2, 0, 1]
+    assert int(got.n_matched[1]) <= 10
+    np.testing.assert_array_equal(n(got.pose.t[1]), t0[1])
+    np.testing.assert_array_equal(n(want.pose.t[1]), t0[1])
+    for f in range(3):
+        np.testing.assert_allclose(n(got.pose.q[f]), n(want.pose.q[f]),
+                                   atol=1e-4)
+        np.testing.assert_allclose(n(got.pose.t[f]), n(want.pose.t[f]),
+                                   atol=1e-4)
+        assert abs(int(got.n_matched[f]) - int(want.n_matched[f])) <= 10
+        np.testing.assert_allclose(float(got.mean_error[f]),
+                                   float(want.mean_error[f]), rtol=1e-3)
+
+
 def test_register_single_scan_is_batch_of_one(scene):
     _, target, dense, src, mask = scene
     ttarget, tdense = _port_target(target, dense)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from torch_helpers import (n, normal_equation_slots, port_args,  # noqa: F401
-                           small_threads, t)
+                           small_threads, t, with_edge_slots)
 from veloslam_tpu.core import se3 as jse3
 from veloslam_tpu.registration import gicp as jgicp
 from veloslam_tpu.registration.pallas_kernels import (TILE,
@@ -92,6 +92,30 @@ def test_cpu_tensors_take_the_plain_version():
     assert ne.LAUNCHES == 0          # the plain path launches nothing
 
 
+@pytest.mark.parametrize("edge", [False, True])
+def test_gn_iteration_plain_is_normal_equations_then_gn_step(edge):
+    """On CPU tensors gn_iteration is gicp.normal_equations_fixed followed
+    by _gn_step (the GN iteration before the fused step), bitwise, and
+    launches nothing; with_edge_slots' slots are rejected, clamped,
+    rejected."""
+    from veloslam_tpu_torch.core import se3
+    from veloslam_tpu_torch.registration import gicp
+    slots = normal_equation_slots(4, 700, seed=5)
+    if edge:
+        slots = with_edge_slots(*slots)
+    pts, q, tr, mu, nrm, hit = port_args(*slots)
+    pose = se3.Pose(q, tr)
+    got = ne.gn_iteration(pts, pose, mu, nrm, hit)
+    H, b, err, n_hit = gicp.normal_equations_fixed(pts, pose, mu, nrm, hit)
+    want = ne._gn_step(pose, H, b, n_hit, 1e-6)
+    for x, w in ((got.pose.q, want.q), (got.pose.t, want.t), (got.H, H),
+                 (got.b, b), (got.err, err)):
+        assert torch.equal(x.view(torch.int32), w.view(torch.int32))
+    assert torch.equal(got.n_hit, n_hit)
+    assert got.step.tolist() == ([0, 2, 0, 1] if edge else [1, 1, 1, 1])
+    assert ne.LAUNCHES == 0
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "strided", "device"])
 def test_wrapper_rejects_bad_inputs(bad):
     args = list(port_args(*normal_equation_slots(2, 64, seed=3)))
@@ -125,12 +149,18 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_source_matches_wrapper():
     """The .cu exports the symbol the wrapper binds, for sm_90a, and the
-    launch's argument count matches the ctypes signature."""
+    launch's arguments match the ctypes signature: 6 inputs, F, P,
+    huber_delta, max_dist, chunk, 6 outputs of the normal equations,
+    damping, 4 outputs of the step, the stream."""
     src = (_build.CSRC_DIR / "normal_equations.cu").read_text()
     m = re.search(r'extern "C" int veloslam_normal_equations\((.*?)\)',
                   src, re.S)
     assert m, "C entry point missing"
-    assert len(m.group(1).split(",")) == 18
+    args = [a.split()[-1].lstrip("*") for a in m.group(1).split(",")]
+    assert args == ["pts", "q", "t", "mu", "nrm", "hit", "F", "P",
+                    "huber_delta", "max_dist", "chunk", "partial", "H", "b",
+                    "err_sum", "w_sum", "n_hit", "damping", "q_out", "t_out",
+                    "err", "step", "stream"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library_path("normal_equations").name.startswith(
         "normal_equations-")

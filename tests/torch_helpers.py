@@ -59,6 +59,25 @@ def normal_equation_slots(F, P, seed, max_dist=2.0):
             nrm.astype(f32), hit)
 
 
+def with_edge_slots(pts, q, tr, mu, nrm, hit):
+    """normal_equation_slots output (F ≥ 3) with slots 0-2 turned into the
+    Gauss-Newton step's edge cases: slot 0 keeps 5 hits (n_hit ≤ 10: step
+    rejected); slot 1's means sit at its posed points moved 1.5 m along
+    x, so its step is that translation, clamped to 1 m; slot 2 holds a
+    NaN in a flagged point (H, b and err NaN; the factor fails: step
+    rejected)."""
+    pts, mu, hit = pts.copy(), mu.copy(), hit.copy()
+    hit[0] = False
+    hit[0, :5] = True
+    u, w = q[1, 1:].astype(np.float64), float(q[1, 0])
+    uv = np.cross(u, pts[1])
+    posed = pts[1] + 2.0 * (w * uv + np.cross(u, uv)) + tr[1]
+    mu[1] = posed + np.array([1.5, 0.0, 0.0])
+    hit[2, 0] = True
+    pts[2, 0, 0] = np.nan
+    return pts, q, tr, mu, nrm, hit
+
+
 def port_args(pts, q, tr, mu, nrm, hit):
     """normal_equation_slots output → the wrapper's CPU tensors."""
     return (t(pts), t(q), t(tr), t(mu), t(nrm), t(hit.astype(np.uint8)))

@@ -85,11 +85,15 @@ def _launch(name, table, idx, out):
 
 
 def gather_i32(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table (N,) int32, idx (M,) int32, contiguous, one device → (M,)."""
+    """table (N,) int32, idx (M,) int32 (16-byte aligned on the card),
+    contiguous, one device → (M,)."""
     _check("gather_i32", table, idx, (None,), torch.int32)
     if table.device.type == "cpu":
         return gather_i32_plain(table, idx)
     out = torch.empty(idx.shape, dtype=torch.int32, device=table.device)
+    if idx.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("gather_i32: idx and out must be 16-byte aligned "
+                         "(indices move as int4)")
     return _launch("gather_i32", table, idx, out)
 
 

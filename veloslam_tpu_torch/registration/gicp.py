@@ -7,9 +7,10 @@ table [μ, n, 0, 0] that the association gathers from in one kernel
 launch.  Correspondences come from the pre-dilated dense index (shared
 map target, one gather per point) or from seven binary searches with a
 nearest-mean choice (per-scan targets, loop-closure verification).  Each
-Gauss-Newton iteration with fixed correspondences is one fused
-normal-equations launch for all F slots (registration.normal_equations),
-a damped batched 6×6 Cholesky solve, a step clamp and a left retraction.
+Gauss-Newton iteration with fixed correspondences is one
+`normal_equations.gn_iteration` call for all F slots: the fused normal
+equations, a damped 6×6 Cholesky solve, a step clamp and a left
+retraction, on the card one kernel call of two launches.
 The JAX original vmaps `register` over slots; here F is a batch axis
 throughout, and F stacked targets are leaves with a leading F.
 """
@@ -24,7 +25,7 @@ from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.registration import voxel as vx
 from veloslam_tpu_torch.registration.gather import gather_rows8
 from veloslam_tpu_torch.registration.normal_equations import (
-    fused_normal_equations)
+    fused_normal_equations, gn_iteration)
 
 
 class GicpResult(NamedTuple):
@@ -138,32 +139,6 @@ def normal_equations(pts, mask, pose: se3.Pose, target: PlaneGrid, *,
                                   huber_delta=huber_delta, max_dist=max_dist)
 
 
-def _gn_step(pose: se3.Pose, H, b, n_hit, damping: float) -> se3.Pose:
-    """Damped Cholesky solve + guarded, clamped left retraction."""
-    eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    trace = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
-    Hd = H + damping * eye + 1e-6 * trace[:, None, None] * eye
-    L, info = torch.linalg.cholesky_ex(Hd)
-    # L Lᵀ x = b as two triangular solves: torch.cholesky_solve's batched
-    # CUDA path synchronizes the stream on every call (16 host stalls per
-    # batch, measured on an H100); solve_triangular does not.
-    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
-    delta = -torch.linalg.solve_triangular(L.transpose(-2, -1), y,
-                                           upper=True)[..., 0]
-    # JAX's Cholesky of a non-PD matrix yields NaN that isfinite rejects;
-    # cholesky_ex leaves a partial factor and sets info instead.
-    ok = (torch.all(torch.isfinite(delta), dim=-1) & (n_hit > 10)
-          & (info == 0))
-    delta = torch.where(ok[:, None], delta, 0.0)
-    # Clamp runaway steps (> 1 m or > 0.3 rad per iteration).
-    tn = torch.linalg.vector_norm(delta[:, 3:], dim=-1)
-    rn = torch.linalg.vector_norm(delta[:, :3], dim=-1)
-    scale = torch.clamp(torch.minimum(
-        1.0 / torch.clamp(tn, min=1e-12), 0.3 / torch.clamp(rn, min=1e-12)),
-        max=1.0)
-    return se3.retract(pose, delta * scale[:, None])
-
-
 def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
                    dense: Optional[vx.DilatedIndex] = None, *,
                    iterations: int = 16, damping: float = 1e-6,
@@ -185,7 +160,7 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
       init_poses: Pose with (F, 4) / (F, 3) leaves.
     """
     F = pts.shape[0]
-    pose = init_poses
+    pose = se3.Pose(init_poses.q.contiguous(), init_poses.t.contiguous())
     err = torch.full((F,), float("inf"), dtype=torch.float32,
                      device=pts.device)
     n_hit = torch.zeros((F,), dtype=torch.int32, device=pts.device)
@@ -195,11 +170,11 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
     while done < iterations:
         block = min(k, iterations - done)
         mu, n, hit0 = associate(pts, mask, pose, target, dense)
+        hit0 = hit0.view(torch.uint8)
         for _ in range(block):
-            H, b, err, n_hit = normal_equations_fixed(
-                pts, pose, mu, n, hit0, huber_delta=huber_delta,
-                max_dist=max_dist)
-            pose = _gn_step(pose, H, b, n_hit, damping)
+            pose, H, _, err, n_hit, _ = gn_iteration(
+                pts, pose, mu, n, hit0, damping=damping,
+                huber_delta=huber_delta, max_dist=max_dist)
         done += block
     return GicpResult(pose=pose, n_matched=n_hit, mean_error=err,
                       iterations=iterations, H=H)
