@@ -1,5 +1,6 @@
 """Drive the PyTorch port's main paths once on one CUDA card: bulk
-odometry, and device full SLAM with its end-of-stream finalize.
+odometry, device full SLAM with its end-of-stream finalize, and the
+user-facing pipeline from pcap to trajectory, landmarks and tiled map.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -39,7 +40,20 @@ code is non-zero:
                 times, keyframes, candidate pairs, accepted closures,
                 corrected trajectory (x, y and z), ATE; launches
                 counted; the spread of z across runs; frames/s.
-Then one JSON line with the kernel records, and last the result line.
+  7. pipeline — the same drive written as a pcap + INS log by the port's
+                simulator, through SlamPipeline(device="cuda").
+                run_offline_batched(batch=4096, defer_map=True) +
+                finalize() (GPS grounding, landmarks, the landmark-Schur
+                graph solve, the tiled map) with bench.py's full-SLAM
+                config, against the JAX package's golden
+                (tests/fixtures/pipeline_golden_seed3.npz): a warm run and
+                3 measured runs, each checked (frames and times,
+                keyframes, closure pairs, trajectory, landmark counts,
+                ATE) with its launches counted; pipeline frames/s as
+                bench.py::run_full_slam defines it; then one run that
+                synchronizes at each stage's end, for the stage seconds.
+Then one JSON line with the kernel records (launches: one pipeline run),
+and last the result line.
 Imports nothing of JAX or of the JAX package, and checks that before the
 result line.
 """
@@ -59,6 +73,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "odometry_golden_seed23.npz")
 FULLSLAM_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                "fullslam_golden_seed3.npz")
+PIPELINE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                               "pipeline_golden_seed3.npz")
 KERNEL_SOURCES = ("normal_equations", "gather")
 # Closure verification of the full-SLAM drive registers 128 candidates
 # of 8192 keyframe points against per-candidate targets of 8192 voxel
@@ -79,6 +95,7 @@ GATHER_RECORDED = {"gather_i32": (1 << 21, 1572864),
                    "gather_rows8": (65536, 1572864)}
 TIMED_RUNS = 20
 FULLSLAM_RUNS = 5
+PIPELINE_RUNS = 3
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s and float32 FLOP/s outside the tensor cores.  A
 # kernel's bound is the larger of the bytes it must move (each input byte
@@ -855,6 +872,165 @@ def _check_fullslam(host, eng, seq, drive, gold, launches, device):
           f"{float(g('ate_raw_ins')):.3f}, limit {limit:.4f})", flush=True)
 
 
+def write_pipeline_drive(drive: dict, model: str, out_dir: str):
+    """A golden drive as bench.py::_make_drive writes it, with the port's
+    writers: the sequence, its pcap (position packets every 1 s) and INS
+    log, the INS positions drifted in +y."""
+    from veloslam_tpu_torch.io import packets as pk
+    from veloslam_tpu_torch.io import simulate as sim
+    seq = sim.generate_sequence(
+        duration_s=drive["duration_s"], model=model, seed=drive["seed"],
+        world=sim.World.demo(**drive["world"]),
+        trajectory=sim.circle_trajectory(**drive["circle"]))
+    paths = sim.write_sequence(seq, out_dir, name=drive["name"])
+    ins = pk.read_ins_txt(paths["ins"])
+    ts = (ins["t_us"] - ins["t_us"][0]) * 1e-6
+    pk.write_ins_txt(paths["ins"], ins["t_us"],
+                     ins["pos_xy"] + np.stack(
+                         [np.zeros_like(ts), drive["drift_rate"] * ts], -1),
+                     np.deg2rad(ins["yaw_deg"]), speed=ins["speed"])
+    return paths, seq
+
+
+def run_pipeline(paths: dict, drive: dict, device, timers=None) -> tuple:
+    """One user run, as bench.py::run_full_slam times it: a fresh
+    SlamPipeline, run_offline_batched (pcap read included) + finalize;
+    returns (pipeline, results, wall s).  `timers` replaces the
+    pipeline's stage timers."""
+    from veloslam_tpu_torch.config import SlamConfig
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    pipe = SlamPipeline(SlamConfig.from_dict(drive["slam"]), device=device)
+    if timers is not None:
+        pipe.timers = timers
+    sync()
+    t0 = time.perf_counter()
+    pipe.run_offline_batched(paths["pcap"], paths["ins"],
+                             batch=drive["batch"], defer_map=True)
+    res = pipe.finalize()
+    sync()
+    return pipe, res, time.perf_counter() - t0
+
+
+def phase_pipeline(device, smi: str, fullslam_launches: dict,
+                   name: str = "full") -> dict:
+    """The user pipeline on bench.py's full-SLAM drive (or, for a CPU
+    rehearsal, `name="small"`), against the JAX golden: a warm run, then
+    PIPELINE_RUNS measured runs, then one stage-synchronized run; returns
+    the kernel launches of one measured run.  The pipeline streams the
+    same packets in the same batches as phase `fullslam` and verifies the
+    same candidates, so its launches must equal that phase's."""
+    import tempfile
+
+    from veloslam_tpu_torch.utils.profiling import StageTimers
+    gold = np.load(PIPELINE_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["drives"]}[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, seq = write_pipeline_drive(drive, cfg["model"], tmp)
+        run_pipeline(paths, drive, device)      # warm: the card's libraries
+        walls, launches = [], None
+        for _ in range(PIPELINE_RUNS):
+            _reset_launches()
+            pipe, res, wall = run_pipeline(paths, drive, device)
+            launches = _launches()
+            _check_pipeline(pipe, res, seq, gold, name, launches,
+                            fullslam_launches, device)
+            walls.append(wall)
+        sync = (torch.cuda.synchronize if device.type == "cuda" else None)
+        _, res, wall_sync = run_pipeline(paths, drive, device,
+                                         StageTimers(sync=sync))
+    wall = float(np.median(walls))
+    n = res["n_frames"]
+    stages = {k: round(v["total_s"], 4) for k, v in res["timing"].items()}
+    print(f"[pipeline] {n} frames in {wall:.3f} s: {n / wall:.1f} frames/s "
+          f"(pipeline frames/s as bench.py::run_full_slam: run_offline_"
+          f"batched + finalize, pcap read included; median of "
+          f"{PIPELINE_RUNS} runs {[round(w, 3) for w in walls]}, each "
+          f"checked); launches per run {launches}; {smi}", flush=True)
+    print(f"[pipeline] stage seconds, synchronized at each stage's end "
+          f"({wall_sync:.3f} s wall, {sum(stages.values()):.3f} s in "
+          f"stages): {stages}; {smi}", flush=True)
+    return launches
+
+
+def _check_pipeline(pipe, res, seq, gold, name, launches, fullslam_launches,
+                    device) -> None:
+    """One pipeline run against the JAX golden."""
+    from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
+
+    def g(k):
+        return gold[f"{name}_{k}"]
+
+    n = res["n_frames"]
+    if n != int(g("n_frames")) or not np.array_equal(res["times_us"],
+                                                     g("times_us")):
+        raise AssertionError(f"pipeline: {n} frames / times differ from "
+                             f"the golden's {int(g('n_frames'))}")
+    if res["n_keyframes"] != int(g("n_keyframes")) or not np.array_equal(
+            res["keyframe_times_us"], g("keyframe_times_us")):
+        raise AssertionError(f"pipeline: {res['n_keyframes']} keyframes / "
+                             f"times, golden {int(g('n_keyframes'))}")
+    # As sets: near-tied proposal values may permute the slots on the card
+    # (see _check_fullslam), not the graph.
+    closures = sorted(pipe.closures)
+    if closures != sorted(map(tuple, g("closures").tolist())):
+        raise AssertionError(f"pipeline: closure pairs {closures} differ "
+                             f"from the golden's {g('closures').tolist()}")
+    if len(closures) < 3:
+        raise AssertionError(f"pipeline: {len(closures)} closures, want 3+")
+    pos = res["positions"]
+    if not (np.isfinite(pos).all() and np.isfinite(res["quaternions"]).all()):
+        raise AssertionError("pipeline: non-finite trajectory")
+    off = float(np.linalg.norm(pos[:, :2] - g("positions")[:, :2],
+                               axis=1).max())
+    off_z = float(np.abs(pos[:, 2] - g("positions")[:, 2]).max())
+    if not (off <= 0.05 and off_z <= Z_LIMIT_M):
+        raise AssertionError(f"pipeline: trajectory {off} m from the JAX "
+                             f"golden in x, y, {off_z} m in z")
+    counts = {k: (res[k], int(g(k))) for k in ("n_landmarks",
+                                              "n_landmark_obs")}
+    for k, (got, want) in counts.items():
+        if not abs(got - want) <= 0.05 * want:
+            raise AssertionError(f"pipeline: {k} {got}, golden {want} "
+                                 "(more than 5% apart)")
+    lm = ""
+    if res["n_landmarks"] == int(g("n_landmarks")):
+        d = np.linalg.norm(pipe.graph.l_pos[:pipe.graph.n_landmarks]
+                           - g("landmarks"), axis=1)
+        lm = f", landmarks max {d.max():.2e} m from the golden's"
+    patches = [pipe.map._materialize(k, create=False)
+               for k in sorted(set(pipe.map._patches)
+                               | set(pipe.map._spilled))]
+    count = sum(float(p.count.sum()) for p in patches)
+    truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
+                                  seq["ins_pos"])
+    rmse = ate(pos[:, :2], truth[:, :2], align=False)["rmse"]
+    limit = min(float(g("ate")) + 0.02, 0.15)
+    if not rmse <= limit:
+        raise AssertionError(f"pipeline: ATE {rmse} m > {limit} m")
+    if device.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"pipeline: a kernel was not launched: "
+                             f"{launches}")
+    _check_launches("pipeline", launches, fullslam_launches, device)
+    print(f"[pipeline] {n} frames, {res['n_keyframes']} keyframes, "
+          f"{len(closures)} closures equal to the JAX golden's as sets; "
+          f"trajectory max {off:.2e} m from it in x, y, {off_z:.2e} m in z; "
+          f"landmarks {res['n_landmarks']} (golden {counts['n_landmarks'][1]}"
+          f", {res['n_landmarks'] - counts['n_landmarks'][1]:+d}), "
+          f"observations {res['n_landmark_obs']} (golden "
+          f"{counts['n_landmark_obs'][1]}, "
+          f"{res['n_landmark_obs'] - counts['n_landmark_obs'][1]:+d}), "
+          f"{int(pipe.graph.o_ok[:pipe.graph.n_obs].sum())} kept after the "
+          f"trim{lm}; map {res['map_patches']} patches (golden "
+          f"{int(g('map_patches'))}), {sum(p.n_voxels for p in patches)} "
+          f"voxels (golden {int(g('map_voxels'))}), total count "
+          f"{count / float(g('map_count')) - 1:+.2e} relative to the "
+          f"golden's; 2-D ATE {rmse:.4f} m (golden {float(g('ate')):.4f}, "
+          f"limit {limit:.4f})", flush=True)
+
+
 def main() -> int:
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -866,7 +1042,8 @@ def main() -> int:
     drive_launches = phase_drive(device, gold, cfg)
     print(f"[drive] launches over both drives: {drive_launches}", flush=True)
     phase_bulk(device, smi, cfg["odometry"])
-    launches = phase_fullslam(device, smi)
+    fullslam_launches = phase_fullslam(device, smi)
+    launches = phase_pipeline(device, smi, fullslam_launches)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "veloslam_tpu"))
     if loaded:

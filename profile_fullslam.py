@@ -2,23 +2,36 @@
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 profile_fullslam.py
+    python3 profile_fullslam.py              # device full SLAM, then the
+                                             # user pipeline
+    python3 profile_fullslam.py pipeline     # the user pipeline only
 
-It drives chip_smoke.py's full-SLAM drive (bench.py's 7 s loop drive at
-the production width) once to warm up, then times each finalize stage
-alone (propose, verify, solve; median of 3, synchronized) and runs
+Device full SLAM: chip_smoke.py's full-SLAM drive (bench.py's 7 s loop
+drive at the production width) once to warm up, then each finalize stage
+timed alone (propose, verify, solve; median of 3, synchronized) and
 torch.profiler over the stream and each stage.  For each it prints the
 kernel launches, the device time, the largest items and what
 synchronizes the host; the full tables go to
-chiprun_out/profile_<name>.txt.  It checks nothing: chip_smoke.py holds
-the path to the JAX golden.
+chiprun_out/profile_<name>.txt.
+
+The user pipeline: chip_smoke.py's `pipeline` drive (the same drive as a
+pcap + INS log through SlamPipeline.run_offline_batched + finalize) once
+to warm up; the host input stages (INS log, pcap read, GPS grounding)
+timed alone; then one run under torch.profiler with every pipeline
+stage marked, synchronized at each stage's end: per stage its wall time,
+the device time of the kernels it launched, its kernel launches and its
+host-device synchronizations and copies.
+
+It checks nothing: chip_smoke.py holds both paths to the JAX goldens.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -109,6 +122,10 @@ def profile_fullslam(device) -> None:
             fn()
             torch.cuda.synchronize()
         traces[name] = prof
+    _report(traces, out_dir)
+
+
+def _report(traces: dict, out_dir: str) -> None:
     for name, prof in traces.items():
         ka = prof.key_averages()
         calls = {e.key: e.count for e in ka}
@@ -126,10 +143,94 @@ def profile_fullslam(device) -> None:
               flush=True)
 
 
+def _stage_of(e) -> str:
+    """The outermost pipeline stage range around a profiler event."""
+    stage = "-"
+    p = e.cpu_parent
+    while p is not None:
+        if p.name.startswith("stage:"):
+            stage = p.name[6:]
+        p = p.cpu_parent
+    return stage
+
+
+def profile_pipeline(device, name: str = "full") -> None:
+    """`name`: the golden drive ("small" rehearses this on the CPU)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from veloslam_tpu_torch.config import SlamConfig
+    from veloslam_tpu_torch.io.pcap import read_lidar_packets
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    from veloslam_tpu_torch.utils.profiling import StageTimers
+
+    class MarkedStages(StageTimers):
+        """Stage timers that also mark each stage in the trace."""
+
+        @contextlib.contextmanager
+        def stage(self, name: str):
+            with record_function(f"stage:{name}"), super().stage(name):
+                yield
+
+    gold = np.load(cs.PIPELINE_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["drives"]}[name]
+    cuda = device.type == "cuda"
+    out_dir = os.path.join(cs.REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, _ = cs.write_pipeline_drive(drive, cfg["model"], tmp)
+        cs.run_pipeline(paths, drive, device)                # warm-up
+        probe = SlamPipeline(SlamConfig.from_dict(drive["slam"]),
+                             device=device)
+        pkts, times, _ = read_lidar_packets(paths["pcap"])
+        for stage, fn in (
+                ("ins_load", lambda: probe.feed_ins_txt(paths["ins"])),
+                ("pcap_read", lambda: read_lidar_packets(paths["pcap"])),
+                ("gps_ground", lambda: probe._ground_offline_times(
+                    paths["pcap"], pkts, times))):
+            t0 = time.perf_counter()
+            fn()
+            print(f"[profile] pipeline {stage}: "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms (host only)",
+                  flush=True)
+        acts = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda
+        timers = MarkedStages(sync=torch.cuda.synchronize if cuda else None)
+        with profile(activities=acts) as prof:
+            _, res, wall = cs.run_pipeline(paths, drive, device, timers)
+    per = {}
+    for e in prof.events():
+        st = per.setdefault(_stage_of(e), {"launches": 0, "syncs": {},
+                                           "device_ms": 0.0})
+        if e.name.startswith("cudaLaunchKernel"):
+            st["launches"] += 1
+        if "Synchronize" in e.name or "Memcpy" in e.name:
+            st["syncs"][e.name] = st["syncs"].get(e.name, 0) + 1
+        if e.device_type == DeviceType.CPU:     # its own kernels' time
+            st["device_ms"] += e.self_device_time_total / 1e3
+    print(f"[profile] pipeline run under the profiler: {wall:.3f} s wall, "
+          f"{res['n_frames']} frames", flush=True)
+    for stage, v in sorted(res["timing"].items()):
+        st = per.get(stage, {"launches": 0, "syncs": {}, "device_ms": 0.0})
+        print(f"[profile] pipeline {stage}: {v['total_s'] * 1e3:.1f} ms wall "
+              f"(synchronized at its end), device {st['device_ms']:.2f} ms "
+              f"in its kernels, {st['launches']} kernel launches, "
+              f"syncs/copies {st['syncs']}", flush=True)
+    rest = per.get("-", {"launches": 0, "syncs": {}})
+    print(f"[profile] pipeline outside the stages: {rest['launches']} "
+          f"kernel launches, syncs/copies {rest['syncs']}", flush=True)
+    with open(os.path.join(out_dir, "profile_pipeline.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="device_time_total",
+                                          row_limit=60))
+
+
 def main() -> int:
     cs.phase_device()
     cs.phase_build()
-    profile_fullslam(torch.device("cuda", 0))
+    device = torch.device("cuda", 0)
+    if sys.argv[1:] != ["pipeline"]:
+        profile_fullslam(device)
+    profile_pipeline(device)
     return 0
 
 

@@ -226,3 +226,81 @@ def test_small_fullslam_on_card_matches_jax_golden(card):
             gold["small_cand_i"], gold["small_cand_j"], gold[f"small_{flag}"])
     d = np.linalg.norm(h["traj_t"][:nf] - gold["small_positions"], axis=1)
     assert d.max() < 0.01
+
+
+def _landmark_graph(K=24, n_landmarks=12, n_obs=90, seed=0):
+    """A drifted 8 m loop of K keyframes (odometry edges from the true
+    motion, one loop closure) with posts seen from ~7 keyframes each
+    (5 cm noise), landmark estimates 0.3 m off: the port's PoseGraph."""
+    from veloslam_tpu_torch.graph.posegraph import PoseGraph
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(K) / K
+    true = se3.Pose(
+        torch.as_tensor(np.stack([np.cos(ang / 2), 0 * ang, 0 * ang,
+                                  np.sin(ang / 2)], -1), dtype=torch.float32),
+        torch.as_tensor(np.stack([8 * np.sin(ang), 8 * (1 - np.cos(ang)),
+                                  0 * ang], -1), dtype=torch.float32))
+    g = PoseGraph(max_poses=32, max_edges=64, max_landmarks=16, max_obs=128)
+    drift = np.stack([rng.normal(0, 0.02, K), 0.2 * np.arange(K),
+                      np.zeros(K)], -1)
+    for k in range(K):
+        g.add_pose(true.q[k].numpy(), true.t[k].numpy() + drift[k])
+    info = (1e4,) * 3 + (100.0,) * 3
+    for i, j in [(k, k + 1) for k in range(K - 1)] + [(0, K - 1)]:
+        rel = se3.relative(se3.Pose(true.q[i], true.t[i]),
+                           se3.Pose(true.q[j], true.t[j]))
+        g.add_edge(i, j, rel.q.numpy(), rel.t.numpy(), info=info)
+    posts = np.concatenate([rng.uniform(-4, 12, (n_landmarks, 2)) * [1, 1],
+                            rng.uniform(0, 2, (n_landmarks, 1))], -1)
+    for m in range(n_landmarks):
+        g.add_landmark(posts[m] + rng.normal(0, 0.3, 3))
+    for o in range(n_obs):
+        m, k = o % n_landmarks, int(rng.integers(0, K))
+        z = se3.apply(se3.inverse(se3.Pose(true.q[k], true.t[k])),
+                      torch.as_tensor(posts[m], dtype=torch.float32))
+        g.add_observation(k, m, z.numpy() + rng.normal(0, 0.05, 3),
+                          info=(8.0,) * 3)
+    return g
+
+
+def test_solve_with_landmarks_on_card_matches_cpu(card):
+    """The Schur-complement landmark solve on the card against the same
+    solve on the CPU: poses and landmarks within 1e-4 (float32 Cholesky
+    and accumulating scatters in another order)."""
+    from veloslam_tpu_torch.graph import pcg
+    g = _landmark_graph()
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        res, stats = pcg.solve_auto_landmarks(
+            g.arrays(dev), max_poses=g.K, max_landmarks=g.M, iterations=6)
+        assert float(stats.final_cost) < float(stats.initial_cost)
+        out[dev.type] = {k: getattr(res, k).cpu().numpy()
+                         for k in ("q", "t", "l_pos")}
+    for k in ("q", "t", "l_pos"):
+        assert np.isfinite(out["cuda"][k]).all()
+        np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], atol=1e-4,
+                                   err_msg=k)
+
+
+def test_integrate_scans_batch_on_card_matches_cpu(card):
+    """The tiled map built on the card (batched transform + voxelize)
+    against the same build on the CPU: tiles, voxel coordinates and counts
+    equal, moments within 1e-4 of the largest magnitude."""
+    from torch_helpers import map_scans
+    from veloslam_tpu_torch.config import MapConfig
+    from veloslam_tpu_torch.map.voxelmap import VoxelMap
+    pts, msk, q, t = map_scans()
+    maps = [VoxelMap(MapConfig(), device=dev)
+            for dev in (card, torch.device("cpu"))]
+    for m in maps:
+        m.integrate_scans_batch(pts, msk, q, t)
+    a, b = (dict(m._patches) for m in maps)
+    assert sorted(a) == sorted(b) and len(b) >= 4
+    for k in b:
+        np.testing.assert_array_equal(a[k].coords, b[k].coords)
+        np.testing.assert_array_equal(a[k].count, b[k].count)
+        for f in ("s1", "s2"):
+            want = getattr(b[k], f)
+            np.testing.assert_allclose(
+                getattr(a[k], f), want, rtol=1e-4,
+                atol=1e-4 * max(np.abs(want).max(), 1.0), err_msg=f)

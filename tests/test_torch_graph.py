@@ -10,7 +10,15 @@ edges (information 1e6 on rotation, 100 on translation) and loop
 closures, a 1e6 gauge prior on keyframe 0.  Both solve it in float32,
 and the normal matrix mixes 1e6 weights with O(1) ones, so each Cholesky
 loses ~6 of float32's 7 digits: poses agree within 2e-3 m and 1e-4 in
-the quaternion, and both land on the true loop within 0.2 m."""
+the quaternion, and both land on the true loop within 0.2 m.
+
+Landmarks: the observation Jacobians against jax.jacfwd within 1e-5;
+solve_with_landmarks (Schur elimination) on that loop with 14 posts
+seen ~7 times each, four of the observations outliers, taken into the
+port from the JAX package's own PoseGraph through `convert`: poses and
+landmarks within 1e-4, before and after the residual trim, whose masks
+are equal.  The port's host PoseGraph against the original: arrays,
+residual norms, growth and save/load equal."""
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +31,9 @@ from veloslam_tpu.core import se3 as jse3
 from veloslam_tpu.graph import optimize as jopt
 from veloslam_tpu.graph import pcg as jpcg
 from veloslam_tpu.graph.posegraph import GraphArrays as JGraph
+from veloslam_tpu_torch import convert
 from veloslam_tpu_torch.graph import optimize, pcg
-from veloslam_tpu_torch.graph.posegraph import GraphArrays
+from veloslam_tpu_torch.graph.posegraph import GraphArrays, PoseGraph
 
 ODOM_INFO = [1e6] * 3 + [100.0] * 3
 CLOSURE_INFO = [1e4] * 3 + [500.0] * 3
@@ -156,3 +165,141 @@ def test_non_positive_definite_solve_gives_nan_poses():
                          max_poses=16, iterations=1)
     assert not np.isfinite(n(want.t)).all()
     assert not np.isfinite(n(got.t)).all()
+
+
+# --- landmarks ---------------------------------------------------------------
+
+def test_obs_jacobian_matches_jax_jacfwd():
+    rng = np.random.default_rng(2)
+    O = 50
+    q = rng.normal(size=(O, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    ti = rng.normal(0, 10, (O, 3))
+    lpos = ti + rng.normal(0, 15, (O, 3))
+    z = rng.normal(0, 15, (O, 3))
+    args = [a.astype(np.float32) for a in (q, ti, lpos, z)]
+    r_j, Jp_j, Jl_j = jax.vmap(jopt._obs_r_and_J)(
+        *(jnp.asarray(a) for a in args))
+    r_t, Jp_t, Jl_t = optimize.obs_r_and_J(*(t(a) for a in args))
+    assert tuple(Jp_t.shape) == (O, 3, 6) and tuple(Jl_t.shape) == (O, 3, 3)
+    np.testing.assert_allclose(n(r_t), n(r_j), atol=1e-5)
+    np.testing.assert_allclose(n(Jp_t), n(Jp_j), atol=1e-5)
+    np.testing.assert_allclose(n(Jl_t), n(Jl_j), atol=1e-5)
+
+
+def landmark_graph(seed=0, K=32, n_poses=28, M=16, n_landmarks=14,
+                   n_obs=100):
+    """The JAX package's host PoseGraph of a drifted loop (loop_graph's
+    edges) plus posts seen ~7 times each: measurements from the true
+    poses with 5 cm noise and four 0.8-2 m outliers (beyond the 0.5 m
+    Huber delta), landmark estimates 0.3 m off."""
+    from veloslam_tpu.graph.posegraph import PoseGraph as JPoseGraph
+    g, true_t = loop_graph(K, n_poses, seed)
+    rng = np.random.default_rng(seed + 1)
+    ang = 2 * np.pi * np.arange(K) / n_poses
+    true_q = _yaw_q(ang)
+    jg = JPoseGraph(max_poses=K, max_edges=len(g["e_i"]), max_landmarks=M,
+                    max_obs=128)
+    for k in range(n_poses):
+        jg.add_pose(g["q"][k], g["t"][k])
+    for e in np.flatnonzero(g["e_valid"]):
+        jg.add_edge(int(g["e_i"][e]), int(g["e_j"][e]), g["e_q"][e],
+                    g["e_t"][e], info=g["e_info"][e])
+    posts = true_t[:n_poses][rng.integers(0, n_poses, n_landmarks)] \
+        + rng.normal(0, 6, (n_landmarks, 3)) * [1, 1, 0.2]
+    for m in range(n_landmarks):
+        jg.add_landmark(posts[m] + rng.normal(0, 0.3, 3))
+    for o in range(n_obs):
+        m = o % n_landmarks
+        k = int(rng.integers(0, n_poses))
+        z = n(jse3.apply(jse3.inverse(jse3.Pose(jnp.asarray(true_q[k]),
+                                                jnp.asarray(true_t[k]))),
+                         jnp.asarray(posts[m].astype(np.float32))))
+        z = z + rng.normal(0, 0.05, 3)
+        if o % 25 == 3:
+            z = z + rng.uniform(0.8, 2.0, 3) * rng.choice([-1, 1], 3)
+        jg.add_observation(k, m, z, info=(8.0,) * 3)
+    return jg, posts
+
+
+def _solve_both(jg, K, M, iterations=6):
+    leaves = jg.arrays()
+    want, wstats = jopt.solve_with_landmarks(
+        JGraph(*(jnp.asarray(x) for x in leaves)), max_poses=K,
+        max_landmarks=M, iterations=iterations)
+    got, stats = pcg.solve_auto_landmarks(
+        convert.graph_arrays_from_numpy(leaves, "cpu"), max_poses=K,
+        max_landmarks=M, iterations=iterations)
+    return want, wstats, got, stats
+
+
+def test_solve_with_landmarks_matches_jax(tmp_path):
+    """Poses and landmarks within 1e-4 of the JAX solve, before and after
+    the residual trim (the trim masks equal); the costs agree and fall;
+    padding rows stay put."""
+    jg, posts = landmark_graph()
+    K, M = jg.K, jg.M
+    want, wstats, got, stats = _solve_both(jg, K, M)
+    for k in ("q", "t", "l_pos"):
+        np.testing.assert_allclose(n(getattr(got, k)), n(getattr(want, k)),
+                                   atol=1e-4, err_msg=k)
+    np.testing.assert_array_equal(n(got.t)[jg.n_poses:],
+                                  jg.t[jg.n_poses:])
+    np.testing.assert_array_equal(n(got.l_pos)[jg.n_landmarks:],
+                                  jg.l_pos[jg.n_landmarks:])
+    for a, b in ((stats.initial_cost, wstats.initial_cost),
+                 (stats.final_cost, wstats.final_cost)):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-3, atol=1e-2)
+    assert float(stats.final_cost) < 0.1 * float(stats.initial_cost)
+    # Residual trim, both packages' host graphs from the same solve.
+    jg.save(tmp_path / "graph.npz")
+    pg = convert.posegraph_from_numpy(dict(np.load(tmp_path / "graph.npz")))
+    for graph in (jg, pg):
+        graph.update_from(n(want.q)[:jg.n_poses], n(want.t)[:jg.n_poses],
+                          n(want.l_pos)[:jg.n_landmarks])
+    dropped = jg.trim_observations(1.0)
+    assert pg.trim_observations(1.0) == dropped >= 2
+    np.testing.assert_array_equal(pg.o_ok, jg.o_ok)
+    want, _, got, _ = _solve_both(jg, K, M)
+    for k in ("q", "t", "l_pos"):
+        np.testing.assert_allclose(n(getattr(got, k)), n(getattr(want, k)),
+                                   atol=1e-4, err_msg=f"trimmed {k}")
+    err = np.linalg.norm(n(got.l_pos)[:jg.n_landmarks] - posts, axis=1)
+    assert err.max() < 0.2
+
+
+def test_posegraph_matches_jax_builder(tmp_path):
+    """The port's PoseGraph, loaded from the JAX graph's save, gives the
+    same arrays (as tensors), poses and residual norms, and grows and
+    saves as the original does."""
+    jg, _ = landmark_graph(seed=3)
+    jg.save(tmp_path / "j.npz")
+    pg = convert.posegraph_from_numpy(np.load(tmp_path / "j.npz"))
+    ja, pa = jg.arrays(), pg.arrays("cpu")
+    for f in JGraph._fields:
+        np.testing.assert_array_equal(n(getattr(pa, f)), getattr(ja, f),
+                                      err_msg=f)
+    np.testing.assert_array_equal(pg.obs_residual_norms(),
+                                  jg.obs_residual_norms())
+    for graph in (jg, pg):          # past every capacity: geometric growth
+        for _ in range(40):
+            graph.add_pose([1, 0, 0, 0], [1, 2, 3])
+            graph.add_edge(0, 1, [1, 0, 0, 0], [0, 0, 1])
+            graph.add_landmark([4, 5, 6])
+            graph.add_observation(1, 2, [0, 1, 0])
+    assert (pg.K, pg.E, pg.M, pg.O) == (jg.K, jg.E, jg.M, jg.O)
+    pg.save(tmp_path / "p.npz")
+    PoseGraph.load(tmp_path / "p.npz").save(tmp_path / "p2.npz")
+    jg.save(tmp_path / "j.npz")
+    j, p = np.load(tmp_path / "j.npz"), np.load(tmp_path / "p2.npz")
+    assert p.files == j.files
+    for f in j.files:
+        np.testing.assert_array_equal(p[f], j[f], err_msg=f)
+
+
+def test_solve_auto_landmarks_raises_above_the_dense_bound():
+    jg, _ = landmark_graph()
+    g = convert.graph_arrays_from_numpy(jg.arrays(), "cpu")
+    with pytest.raises(NotImplementedError, match="solve_pcg_landmarks"):
+        pcg.solve_auto_landmarks(g, max_poses=pcg.DENSE_MAX_POSES + 1,
+                                 max_landmarks=16)

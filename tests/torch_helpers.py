@@ -81,3 +81,21 @@ def with_edge_slots(pts, q, tr, mu, nrm, hit):
 def port_args(pts, q, tr, mu, nrm, hit):
     """normal_equation_slots output → the wrapper's CPU tensors."""
     return (t(pts), t(q), t(tr), t(mu), t(nrm), t(hit.astype(np.uint8)))
+
+
+def map_scans(K=70, P=512, seed=0):
+    """Frame-local scans (points within ±30 m, 0-6 m up, half of each on
+    walls every 10 m, ~90% valid) and world poses (yaw, ±150 m in x, y):
+    several 100 m map tiles, 1 m voxels hit by several points."""
+    rng = np.random.default_rng(seed)
+    pts = np.concatenate([rng.uniform(-30, 30, (K, P, 2)),
+                          rng.uniform(0, 6, (K, P, 1))], -1)
+    pts[:, : P // 2, 0] = np.round(pts[:, : P // 2, 0] / 10) * 10 + 0.3
+    msk = rng.random((K, P)) < 0.9
+    yaw = rng.uniform(-np.pi, np.pi, K)
+    q = np.stack([np.cos(yaw / 2), np.zeros(K), np.zeros(K),
+                  np.sin(yaw / 2)], -1)
+    tr = np.concatenate([rng.uniform(-150, 150, (K, 2)),
+                         rng.uniform(-1, 1, (K, 1))], -1)
+    return (pts.astype(np.float32), msk, q.astype(np.float32),
+            tr.astype(np.float32))

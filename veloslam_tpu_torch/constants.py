@@ -11,6 +11,11 @@ HDL_PACKET_BYTES = 1206          # payload size of one LiDAR data packet
 HDL_FIRINGS_PER_PACKET = 12      # firing blocks per packet
 HDL_LASERS_PER_FIRING = 32       # laser returns per firing block
 HDL_FIRING_BYTES = 100           # 2 (block id) + 2 (azimuth) + 32 * 3
+POSITION_PACKET_BYTES = 512      # GPS/position packet payload (554 - 42)
+
+# UDP ports (a pcap's canned headers name them).
+LIDAR_DATA_PORT = 2368
+LIDAR_POSITION_PORT = 8308
 
 # Firing-block identifiers.
 BLOCK_ID_0_TO_31 = 0xEEFF
@@ -34,3 +39,5 @@ VLP16_LASER_US = 2.304
 VLP16_SUBFIRING_US = 55.296
 
 INS_PERIOD_MS = 10               # INSPVA at 100 Hz
+
+ROI_RANGE_M = 100.0              # sensor detecting range for map ROI queries

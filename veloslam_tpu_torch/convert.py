@@ -1,10 +1,11 @@
-"""Carry calibration, odometry and full-SLAM state across from the JAX
-package.
+"""Carry calibration, odometry, full-SLAM and pose-graph state across
+from the JAX package.
 
 The JAX package's `DeviceCalib`, `OdometryState` (sample-assembly carry),
-`KeyframeRing` and `SlamState` are NamedTuples; converted leaf by leaf
-with `np.asarray`, they become trees of numpy arrays with the same field
-names.  These functions turn such trees into the port's tensors on a
+`KeyframeRing`, `SlamState` and `GraphArrays` are NamedTuples; converted
+leaf by leaf with `np.asarray`, they become trees of numpy arrays with the
+same field names.  Its host `PoseGraph` crosses as the fields that
+`PoseGraph.save` writes.  These functions turn such trees into the port's tensors on a
 device, and the port's state back into numpy, so both packages can start
 a step from one mid-drive state.  The port's ring carries one trash row
 past its capacity (runtime.fullslam.KeyframeRing); it is added on the way
@@ -18,6 +19,7 @@ import torch
 
 from veloslam_tpu_torch.decode.decode import DeviceCalib
 from veloslam_tpu_torch.decode.frames import SampleCarry
+from veloslam_tpu_torch.graph.posegraph import GraphArrays, PoseGraph
 from veloslam_tpu_torch.registration.voxel import VoxelGrid
 from veloslam_tpu_torch.runtime.fullslam import KeyframeRing, SlamState
 from veloslam_tpu_torch.runtime.odometry import OdometryState
@@ -87,3 +89,15 @@ def slam_state_from_numpy(leaves, device) -> SlamState:
 def slam_state_to_numpy(state: SlamState) -> SlamState:
     return SlamState(odom=odometry_state_to_numpy(state.odom),
                      kf=ring_to_numpy(state.kf))
+
+
+def graph_arrays_from_numpy(leaves, device) -> GraphArrays:
+    """A GraphArrays-shaped tree of numpy arrays → the port's GraphArrays
+    on `device`."""
+    return _tree_to_torch(GraphArrays, leaves, device)
+
+
+def posegraph_from_numpy(arrays) -> PoseGraph:
+    """The fields of PoseGraph.save (an npz or a dict of numpy arrays) →
+    the port's host PoseGraph."""
+    return PoseGraph.from_arrays(arrays)

@@ -191,3 +191,37 @@ def euler_deg_to_quat_np(roll_deg, pitch_deg, yaw_deg) -> np.ndarray:
     qz = axis_angle(np.stack([zero, zero, one], -1), y)
     q = mul(qy, mul(qx, qz))
     return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def quat_mul_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Batched numpy Hamilton product (host code)."""
+    w1, x1, y1, z1 = np.moveaxis(np.asarray(a), -1, 0)
+    w2, x2, y2, z2 = np.moveaxis(np.asarray(b), -1, 0)
+    return np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                     w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                     w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], -1)
+
+
+def quat_rotate_np(q: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """Batched numpy quaternion rotation of vectors (..., 3)."""
+    q = np.asarray(q)
+    v = np.asarray(v)
+    u = q[..., 1:]
+    w = q[..., :1]
+    uv = np.cross(u, v)
+    return v + 2.0 * (w * uv + np.cross(u, uv))
+
+
+def compose_np(qa, ta, qb, tb):
+    """Batched numpy pose composition a ∘ b → (q, t)."""
+    q = quat_mul_np(qa, qb)
+    t = np.asarray(ta) + quat_rotate_np(qa, tb)
+    return q, t
+
+
+def inverse_np(q, t):
+    """Batched numpy pose inverse → (q, t)."""
+    q = np.asarray(q)
+    qc = np.concatenate([q[..., :1], -q[..., 1:]], -1)
+    return qc, -quat_rotate_np(qc, np.asarray(t))

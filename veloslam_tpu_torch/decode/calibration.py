@@ -1,6 +1,7 @@
-"""Laser calibration tables (host, numpy).
+"""Laser calibration tables (host, numpy): built-in profiles and the
+Velodyne XML loader.
 
-A jax-free copy of the built-in profiles of
+A jax-free copy of the built-in profiles and `from_xml` of
 veloslam_tpu/decode/calibration.py (importing that module imports jax
 through the decode package's __init__).  tests/test_torch_host.py holds
 the copy equal to the original.
@@ -8,6 +9,7 @@ the copy equal to the original.
 
 from __future__ import annotations
 
+import xml.etree.ElementTree as ET
 from typing import NamedTuple
 
 import numpy as np
@@ -78,3 +80,48 @@ def hdl64() -> LaserCalib:
 
 def default_for(model: str) -> LaserCalib:
     return {"hdl32": hdl32, "vlp16": vlp16, "hdl64": hdl64}[model]()
+
+
+def from_xml(path: str) -> LaserCalib:
+    """Load a Velodyne XML calibration file: per laser item `px` the
+    fields id_, rotCorrection_, vertCorrection_, distCorrection_,
+    vertOffsetCorrection_ and horizOffsetCorrection_, centimetre fields
+    converted to metres; the laser count is the number of enabled_ items
+    equal to 1 (else the highest id + 1)."""
+    root = ET.parse(path).getroot()
+    db = root.find("DB")
+    if db is None:
+        raise ValueError(f"{path}: no <DB> element")
+    enabled = db.find("enabled_")
+    n_lasers = 0
+    if enabled is not None:
+        n_lasers = sum(1 for it in enabled.findall("item")
+                       if it.text and it.text.strip() == "1")
+    fields = {k: np.zeros(64) for k in
+              ("rot", "vert", "dist", "voff", "hoff")}
+    max_id = -1
+    points = db.find("points_")
+    if points is None:
+        raise ValueError(f"{path}: no <points_> element")
+    for item in points.findall("item"):
+        px = item.find("px")
+        if px is None:
+            continue
+
+        def get(tag, default=0.0):
+            el = px.find(tag)
+            return float(el.text) if el is not None and el.text else default
+
+        idx = int(get("id_", -1))
+        if idx < 0:
+            continue
+        max_id = max(max_id, idx)
+        fields["rot"][idx] = get("rotCorrection_")
+        fields["vert"][idx] = get("vertCorrection_")
+        fields["dist"][idx] = get("distCorrection_") / 100.0
+        fields["voff"][idx] = get("vertOffsetCorrection_") / 100.0
+        fields["hoff"][idx] = get("horizOffsetCorrection_") / 100.0
+    n = n_lasers if n_lasers > 0 else max_id + 1
+    return LaserCalib(fields["rot"][:n], fields["vert"][:n],
+                      fields["dist"][:n], fields["voff"][:n],
+                      fields["hoff"][:n])

@@ -1,8 +1,8 @@
 """Synthetic-world LiDAR simulator (host, numpy).
 
 A jax-free copy of the parts of veloslam_tpu/io/simulate.py that
-`generate_sequence` needs (importing the original imports jax through the
-io and decode package __init__s).  A closed-form raycast world (ground
+`generate_sequence` and `write_sequence` need (importing the original
+imports jax through the io and decode package __init__s).  A closed-form raycast world (ground
 plane + posts + walls + painted marks) is swept by a simulated vehicle;
 the result is a bit-exact HDL packet stream, the INS log and the true
 trajectory.  tests/test_torch_host.py holds the copy byte-equal to the
@@ -12,15 +12,18 @@ original.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
 from veloslam_tpu_torch import constants as C
+from veloslam_tpu_torch.core import geodesy
 from veloslam_tpu_torch.core.se3 import euler_deg_to_quat_np
 from veloslam_tpu_torch.core.timeline import PoseTrack
 from veloslam_tpu_torch.decode import calibration as calib_mod
 from veloslam_tpu_torch.io import packets as pk
+from veloslam_tpu_torch.io.pcap import PcapWriter
 
 
 def truth_track(seq: Dict[str, np.ndarray],
@@ -337,3 +340,45 @@ def generate_sequence(duration_s: float = 2.0, model: str = "hdl32",
         "ins_pos": ins_pos, "ins_yaw": ins_yaw, "ins_vel": ins_vel,
         "model": model,
     }
+
+
+SIM_ORIGIN_LLH = (31.0, 121.0, 10.0)     # WGS-84 origin of the sim world
+
+
+def write_sequence(seq: Dict[str, np.ndarray], out_dir: str,
+                   name: str = "sim",
+                   position_packet_period_s: float = 1.0) -> Dict[str, str]:
+    """Persist a simulated sequence as pcap + INS text log.
+
+    Position packets (512 B, port 8308, NMEA $GPRMC + µs-into-hour
+    counter) are interleaved every `position_packet_period_s` so offline
+    loads exercise the GPS clock-grounding path; pass 0 to disable."""
+    os.makedirs(out_dir, exist_ok=True)
+    pcap_path = os.path.join(out_dir, f"{name}.pcap")
+    # geodesy works in radians; the origin and NMEA sentences in degrees.
+    org_rad = np.asarray([np.deg2rad(SIM_ORIGIN_LLH[0]),
+                          np.deg2rad(SIM_ORIGIN_LLH[1]),
+                          SIM_ORIGIN_LLH[2]], np.float64)
+    org_xyz = geodesy.llh2xyz_np(org_rad)
+    next_pos_t = -np.inf if position_packet_period_s > 0 else np.inf
+    ins_i = 0
+    with PcapWriter(pcap_path) as w:
+        for pkt, t in zip(seq["packets"], seq["pkt_times_us"]):
+            t = int(t)
+            if t * 1e-6 >= next_pos_t:
+                while ins_i + 1 < len(seq["ins_t_us"]) \
+                        and seq["ins_t_us"][ins_i + 1] <= t:
+                    ins_i += 1
+                llh = geodesy.enu2llh_np(
+                    np.asarray(seq["ins_pos"][ins_i], np.float64), org_xyz)
+                w.write(pk.pack_position_packet(
+                    t % 3_600_000_000, t,
+                    float(np.rad2deg(llh[0])),
+                    float(np.rad2deg(llh[1]))), t)
+                next_pos_t = t * 1e-6 + position_packet_period_s
+            w.write(pkt.tobytes(), t)
+    ins_path = os.path.join(out_dir, f"{name}_ins.txt")
+    pk.write_ins_txt(ins_path, seq["ins_t_us"], seq["ins_pos"][:, :2],
+                     seq["ins_yaw"],
+                     speed=np.linalg.norm(seq["ins_vel"], axis=-1))
+    return {"pcap": pcap_path, "ins": ins_path}

@@ -1,6 +1,6 @@
 """Trajectory evaluation against ground truth (host, numpy).
 
-A jax-free copy of `ate` and `interpolate_positions` from
+A jax-free copy of `ate`, `rpe` and `interpolate_positions` from
 veloslam_tpu/runtime/evaluate.py (importing the original imports jax
 through the runtime package's __init__).
 """
@@ -41,6 +41,18 @@ def ate(est_pos: np.ndarray, ref_pos: np.ndarray,
         R, t, s = umeyama_align(est, ref)
         est = est @ R.T * s + t
     e = np.linalg.norm(est - ref, axis=1)
+    return {"rmse": float(np.sqrt(np.mean(e ** 2))),
+            "mean": float(e.mean()), "median": float(np.median(e)),
+            "max": float(e.max())}
+
+
+def rpe(est_pos: np.ndarray, ref_pos: np.ndarray,
+        delta: int = 1) -> Dict[str, float]:
+    """Relative pose error over index gaps of `delta` (translation only)."""
+    est, ref = np.asarray(est_pos, float), np.asarray(ref_pos, float)
+    de = est[delta:] - est[:-delta]
+    dr = ref[delta:] - ref[:-delta]
+    e = np.linalg.norm(de - dr, axis=1)
     return {"rmse": float(np.sqrt(np.mean(e ** 2))),
             "mean": float(e.mean()), "median": float(np.median(e)),
             "max": float(e.max())}
