@@ -91,31 +91,34 @@ def write_drive(sim, pkmod, drive: dict, model: str, out_dir: str):
     return paths, seq
 
 
+def jax_slam_config(d: dict):
+    """The JAX package's SlamConfig from a config's dataclasses.asdict
+    (lists, as JSON gives tuples back, become tuples)."""
+    from veloslam_tpu.config import (GraphConfig, MapConfig, PipelineConfig,
+                                     RegistrationConfig, SensorConfig,
+                                     SlamConfig)
+    tup = {k: tuple(v) if isinstance(v, list) else v
+           for k, v in d["graph"].items()}
+    sensor = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in d["sensor"].items()}
+    return SlamConfig(sensor=SensorConfig(**sensor),
+                      pipeline=PipelineConfig(**d["pipeline"]),
+                      registration=RegistrationConfig(**d["registration"]),
+                      map=MapConfig(**d["map"]),
+                      graph=GraphConfig(**tup))
+
+
 def main():
     sys.path.insert(0, REPO)
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from veloslam_tpu.config import (GraphConfig, MapConfig, PipelineConfig,
-                                     RegistrationConfig, SensorConfig,
-                                     SlamConfig)
     from veloslam_tpu.io import packets as pkmod
     from veloslam_tpu.io import simulate as sim
     from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
     from veloslam_tpu.runtime.pipeline import SlamPipeline
 
-    def config(d):
-        tup = {k: tuple(v) if isinstance(v, list) else v
-               for k, v in d["graph"].items()}
-        sensor = {k: tuple(v) if isinstance(v, list) else v
-                  for k, v in d["sensor"].items()}
-        return SlamConfig(sensor=SensorConfig(**sensor),
-                          pipeline=PipelineConfig(**d["pipeline"]),
-                          registration=RegistrationConfig(
-                              **d["registration"]),
-                          map=MapConfig(**d["map"]),
-                          graph=GraphConfig(**tup))
-
+    config = jax_slam_config
     cfg = golden_config()
     out = {"config": json.dumps(cfg)}
     for drive in cfg["drives"]:

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the hand-written normal-equations and gather
-kernels against their plain versions, the wrappers' input checks, and
-the odometry slice on the card against the same slice on the CPU.
+"""The port on a CUDA card: the hand-written normal-equations, gather and
+chain kernels against their plain versions, the wrappers' input checks,
+the odometry slice and the graph solves (dense and PCG) on the card
+against the same on the CPU.
 Marked `cuda`; each test skips where
 torch.cuda.is_available() is false.  On a machine with a card:
 
@@ -304,3 +305,72 @@ def test_integrate_scans_batch_on_card_matches_cpu(card):
             np.testing.assert_allclose(
                 getattr(a[k], f), want, rtol=1e-4,
                 atol=1e-4 * max(np.abs(want).max(), 1.0), err_msg=f)
+
+
+@pytest.mark.parametrize("K", [1, 33, 4096])
+def test_chain_kernel_matches_plain_on_card(card, K):
+    """chain_factor and chain_solve on the card against their plain
+    versions on the solver's own blocks (chip_smoke.chain_inputs: a
+    drifted chain, the 1e6 gauge, the 2% floor): |Δ| ≤ 1e-4·max|ref| +
+    1e-6; LAUNCHES counts one launch per call."""
+    from chip_smoke import chain_inputs
+    from veloslam_tpu_torch.graph import chain
+    D, B, r = chain_inputs(K, card)
+    before = dict(chain.LAUNCHES)
+    U, L = chain.chain_factor(D, B)
+    Up, Lp = chain.chain_factor_plain(D, B)
+    z = chain.chain_solve(Up, Lp, B, r)
+    zp = chain.chain_solve_plain(Up, Lp, B, r)
+    torch.cuda.synchronize()
+    assert chain.LAUNCHES == {"chain_factor": before["chain_factor"] + 1,
+                              "chain_solve": before["chain_solve"] + 1}
+    for name, x, ref in (("Uinv", U, Up), ("L", L, Lp), ("z", z, zp)):
+        ref = ref.cpu().numpy()
+        np.testing.assert_allclose(x.cpu().numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max() + 1e-6,
+                                   err_msg=name)
+
+
+def test_chain_wrappers_check_inputs_on_card(card):
+    from veloslam_tpu_torch.graph import chain
+    D = torch.eye(6, device=card).repeat(8, 1, 1)
+    r = torch.ones(49, device=card)[1:].reshape(8, 6)   # 4-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        chain.chain_solve(D, D, D, r)
+    with pytest.raises(ValueError, match="tensors on"):
+        chain.chain_factor(D, D.cpu())
+    with pytest.raises(TypeError):
+        chain.chain_factor(D.half(), D.half())
+
+
+def test_solve_pcg_on_card_matches_cpu(card):
+    """solve_pcg (chain preconditioner) on a 600-pose drifted chain with
+    closures in 1024 pose rows, on the card against the same solve on the
+    CPU: positions within 1e-3 m (products and the chain's sums in
+    another order), two GN iterations of 32 CG steps; the chain kernel
+    launched once per factor and once per preconditioner application; a
+    second solve on the card equal to the bit (fixed-order segment sums)."""
+    from chip_smoke import PCG_GRAPHS, pcg_graph
+    from veloslam_tpu_torch.graph import chain, pcg
+    from veloslam_tpu_torch.graph.posegraph import GraphArrays
+    p = dict(PCG_GRAPHS["chain"], n=600, K=1024, E=2048, lap=100)
+    f, _ = pcg_graph(p)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        before = dict(chain.LAUNCHES)
+        g = GraphArrays(**{k: torch.as_tensor(v, device=dev)
+                           for k, v in f.items()})
+        res, stats = pcg.solve_pcg(g, max_poses=1024, iterations=2,
+                                   cg_iters=32)
+        assert float(stats.final_cost) < float(stats.initial_cost)
+        out[dev.type] = res.t[:600].cpu().numpy()
+        launched = {k: chain.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"chain_factor": 2, "chain_solve": 66}
+                            if dev.type == "cuda"
+                            else {"chain_factor": 0, "chain_solve": 0})
+    assert np.isfinite(out["cuda"]).all()
+    np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-3)
+    g = GraphArrays(**{k: torch.as_tensor(v, device=card)
+                       for k, v in f.items()})
+    again, _ = pcg.solve_pcg(g, max_poses=1024, iterations=2, cg_iters=32)
+    assert np.array_equal(again.t[:600].cpu().numpy(), out["cuda"])

@@ -18,7 +18,11 @@ seen ~7 times each, four of the observations outliers, taken into the
 port from the JAX package's own PoseGraph through `convert`: poses and
 landmarks within 1e-4, before and after the residual trim, whose masks
 are equal.  The port's host PoseGraph against the original: arrays,
-residual norms, growth and save/load equal."""
+residual norms, growth and save/load equal.
+
+The solver choice (solve_auto, solve_auto_landmarks): dense at
+DENSE_MAX_POSES, PCG above it, and one PCG step at 2049 pose rows within
+1e-3 m of JAX's (the solvers themselves: tests/test_torch_pcg.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -142,15 +146,44 @@ def test_solve_matches_jax(K, n_poses):
                                       ).max() > 4.0
 
 
-def test_solve_auto_is_dense_up_to_the_bound_and_raises_above():
+def _routes(monkeypatch, dense_mod, dense_name, pcg_name, call, **kw):
+    """Which solver solve_auto* picks at DENSE_MAX_POSES and one above
+    (both spied, so nothing is solved), with the arguments it passes."""
+    seen = []
+    for mod, name, tag in ((dense_mod, dense_name, "dense"),
+                           (pcg, pcg_name, "pcg")):
+        monkeypatch.setattr(mod, name, lambda g, _tag=tag, **a: (
+            seen.append((_tag, a)), (g, None))[1])
+    for K in (pcg.DENSE_MAX_POSES, pcg.DENSE_MAX_POSES + 1):
+        call(max_poses=K, iterations=1, cg_iters=1, **kw)
+    return seen
+
+
+def test_solve_auto_is_dense_up_to_the_bound_and_raises_above(monkeypatch):
+    """solve_auto routes as the JAX package's does: the dense solve up to
+    DENSE_MAX_POSES, PCG (cg_iters passed on) above it, where the port
+    once raised.  Above the bound, on a 16-pose loop padded to 2049 rows,
+    one GN iteration of one CG step lands within 1e-3 m of JAX's."""
     g, _ = loop_graph(16, 16)
     tg = GraphArrays(**{k: t(v) for k, v in g.items()})
     a, _ = pcg.solve_auto(tg, max_poses=16, iterations=2)
     b, _ = optimize.solve(tg, max_poses=16, iterations=2)
     assert torch.equal(a.t, b.t)
     assert pcg.DENSE_MAX_POSES == jpcg.DENSE_MAX_POSES
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pcg.solve_auto(tg, max_poses=pcg.DENSE_MAX_POSES + 1)
+    K = pcg.DENSE_MAX_POSES + 1
+    g, _ = loop_graph(K, 16)
+    want, _ = jpcg.solve_auto(JGraph(**{k: jnp.asarray(v)
+                                        for k, v in g.items()}),
+                              max_poses=K, iterations=1, cg_iters=1)
+    got, stats = pcg.solve_auto(GraphArrays(**{k: t(v) for k, v in
+                                               g.items()}),
+                                max_poses=K, iterations=1, cg_iters=1)
+    np.testing.assert_allclose(n(got.t), n(want.t), atol=1e-3)
+    assert not np.allclose(n(got.t)[:16], g["t"][:16], atol=1e-2)
+    seen = _routes(monkeypatch, optimize, "solve", "solve_pcg",
+                   lambda **kw: pcg.solve_auto(tg, **kw))
+    assert [s for s, _ in seen] == ["dense", "pcg"]
+    assert seen[1][1]["cg_iters"] == 1 and seen[1][1]["max_poses"] == K
 
 
 def test_non_positive_definite_solve_gives_nan_poses():
@@ -297,9 +330,28 @@ def test_posegraph_matches_jax_builder(tmp_path):
         np.testing.assert_array_equal(p[f], j[f], err_msg=f)
 
 
-def test_solve_auto_landmarks_raises_above_the_dense_bound():
-    jg, _ = landmark_graph()
-    g = convert.graph_arrays_from_numpy(jg.arrays(), "cpu")
-    with pytest.raises(NotImplementedError, match="solve_pcg_landmarks"):
-        pcg.solve_auto_landmarks(g, max_poses=pcg.DENSE_MAX_POSES + 1,
-                                 max_landmarks=16)
+def test_solve_auto_landmarks_raises_above_the_dense_bound(monkeypatch):
+    """solve_auto_landmarks routes as the JAX package's does: the dense
+    Schur solve up to DENSE_MAX_POSES, the landmark-Schur PCG above it,
+    where the port once raised.  Above the bound, on the landmark loop
+    padded to 2049 pose rows, one GN iteration of one CG step lands within
+    1e-3 m of JAX's, landmarks included."""
+    K = pcg.DENSE_MAX_POSES + 1
+    jg, _ = landmark_graph(K=K)
+    leaves = jg.arrays()
+    want, _ = jpcg.solve_auto_landmarks(
+        JGraph(*(jnp.asarray(x) for x in leaves)), max_poses=K,
+        max_landmarks=jg.M, iterations=1, cg_iters=1)
+    g = convert.graph_arrays_from_numpy(leaves, "cpu")
+    got, _ = pcg.solve_auto_landmarks(g, max_poses=K, max_landmarks=jg.M,
+                                      iterations=1, cg_iters=1)
+    for k in ("t", "l_pos"):
+        np.testing.assert_allclose(n(getattr(got, k)), n(getattr(want, k)),
+                                   atol=1e-3, err_msg=k)
+    assert not np.allclose(n(got.l_pos), jg.l_pos, atol=1e-3)
+    seen = _routes(monkeypatch, optimize, "solve_with_landmarks",
+                   "solve_pcg_landmarks",
+                   lambda **kw: pcg.solve_auto_landmarks(g, **kw),
+                   max_landmarks=jg.M)
+    assert [s for s, _ in seen] == ["dense", "pcg"]
+    assert seen[1][1]["cg_iters"] == 1 and seen[1][1]["max_poses"] == K

@@ -1,6 +1,7 @@
 """Segment reductions and a sync-free scalar gather — the torch
 counterparts of jax.ops.segment_sum / segment_min and of indexing by a
-traced scalar.
+traced scalar — and segment sums in a fixed order over a plan made once
+for ids that many sums share.
 
 Empty segments take the reduction's identity (0 for a sum, the dtype's
 max for a min), as jax.ops does; callers read those values for empty
@@ -8,6 +9,8 @@ segments, so the identity is part of the contract.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -19,6 +22,52 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
     out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     return out.index_add_(0, ids.long(), data)
+
+
+class SegmentPlan(NamedTuple):
+    """A segment-id vector prepared for repeated sums in a fixed order:
+    its rows sorted stably by segment, and each segment's row count.
+    index_add_ on the card adds floats by atomics in no fixed order; an
+    iterative solver that sums over the same ids hundreds of times turns
+    that into answers that differ from run to run."""
+
+    order: torch.Tensor    # (N,) int64: rows by segment, ties in row order
+    lengths: torch.Tensor  # (num_segments + trash segments,) int64
+    num_segments: int
+
+
+# Rows left out of a plan go to trash segments of at most this many rows:
+# segment_reduce sums each segment in one thread, so no segment may grow
+# with the padding.
+_TRASH_ROWS = 32
+
+
+def segment_plan(ids: torch.Tensor, num_segments: int,
+                 valid: torch.Tensor = None) -> SegmentPlan:
+    """The plan of `ids` (every valid id in [0, num_segments)); rows where
+    `valid` is False are in no segment.  No host read."""
+    ids = ids.long()
+    if valid is not None:
+        ids = torch.where(valid, ids, num_segments)
+    counts = torch.zeros(num_segments + 1, dtype=torch.int64,
+                         device=ids.device).index_add_(
+                             0, ids, torch.ones_like(ids))
+    n_trash = -(-ids.shape[0] // _TRASH_ROWS)
+    trash = torch.clamp(counts[-1] - _TRASH_ROWS * torch.arange(
+        n_trash, device=ids.device), 0, _TRASH_ROWS)
+    return SegmentPlan(torch.argsort(ids, stable=True),
+                       torch.cat([counts[:-1], trash]), num_segments)
+
+
+def segment_sum_planned(data: torch.Tensor, plan: SegmentPlan
+                        ) -> torch.Tensor:
+    """segment_sum over the plan's segments, each segment's rows added in
+    row order: the same sums on every run and device; empty segments 0.
+    `unsafe` skips segment_reduce's checks of the lengths, which read them
+    on the host (segment_plan makes them add up to the rows)."""
+    out = torch.segment_reduce(data.index_select(0, plan.order), "sum",
+                               lengths=plan.lengths, axis=0, unsafe=True)
+    return out[:plan.num_segments]
 
 
 def segment_min(data: torch.Tensor, ids: torch.Tensor,

@@ -158,22 +158,30 @@ def _assemble_pose_system(g: GraphArrays, max_poses: int):
     return H, b, cost
 
 
-def _assemble_landmark_terms(g: GraphArrays, max_poses: int,
-                             max_landmarks: int,
-                             obs_huber_delta: float = 0.5):
-    """Landmark-coupled terms: App-add (6K, 6K), b_p-add (6K,), All
-    (M, 3, 3), b_l (M, 3), the pose-coupling tensor T (M, 3, 6K) and the
-    cost.  Observations get a Huber influence weight (delta in metres on
-    the 3-D residual norm): post detections are ~0.3 m noisy and
-    occasional cross-associations reach a metre.  The accumulating
-    scatters sum in no fixed order on CUDA."""
-    K, M = max_poses, max_landmarks
+def _obs_terms(g: GraphArrays, obs_huber_delta: float = 0.5):
+    """Per observation (r (O, 3), Jp (O, 3, 6), Jl (O, 3, 3), w (O, 3)) at
+    the current estimate.  Observations get a Huber influence weight
+    (delta in metres on the 3-D residual norm): post detections are
+    ~0.3 m noisy and occasional cross-associations reach a metre."""
     oi, ol = g.o_i.long(), g.o_l.long()
     r, Jp, Jl = obs_r_and_J(g.q[oi], g.t[oi], g.l_pos[ol], g.o_z)
     rn = torch.linalg.vector_norm(r, dim=-1)
     hub = torch.where(rn <= obs_huber_delta, 1.0,
                       obs_huber_delta / torch.clamp(rn, min=1e-9))
-    w = g.o_valid.to(r.dtype)[:, None] * g.o_info * hub[:, None]  # (O, 3)
+    w = g.o_valid.to(r.dtype)[:, None] * g.o_info * hub[:, None]
+    return r, Jp, Jl, w
+
+
+def _assemble_landmark_terms(g: GraphArrays, max_poses: int,
+                             max_landmarks: int,
+                             obs_huber_delta: float = 0.5):
+    """Landmark-coupled terms: App-add (6K, 6K), b_p-add (6K,), All
+    (M, 3, 3), b_l (M, 3), the pose-coupling tensor T (M, 3, 6K) and the
+    cost, with _obs_terms' Huber weights.  The accumulating scatters sum
+    in no fixed order on CUDA."""
+    K, M = max_poses, max_landmarks
+    oi, ol = g.o_i.long(), g.o_l.long()
+    r, Jp, Jl, w = _obs_terms(g, obs_huber_delta)
     Jpw = Jp * w[:, :, None]
     Jlw = Jl * w[:, :, None]
     cost = torch.sum(w * r * r)

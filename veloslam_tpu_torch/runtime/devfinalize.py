@@ -13,8 +13,9 @@ Port of veloslam_tpu/runtime/devfinalize.py:
      for reciprocal consistency) with the tightness and self-normalized
      observability gates;
   3. `solve_and_correct`: the pose graph (consecutive odometry edges +
-     accepted closures) assembled on the device, solved dense, and the
-     keyframe corrections slerp/lerp-interpolated onto the per-frame
+     accepted closures) assembled on the device, solved (dense up to
+     graph.pcg.DENSE_MAX_POSES keyframes, matrix-free PCG above), and
+     the keyframe corrections slerp/lerp-interpolated onto the per-frame
      trajectory.
 """
 
@@ -48,11 +49,12 @@ class Candidates(NamedTuple):
 
 def device_vector(values: Sequence[float], device) -> torch.Tensor:
     """float32 vector of host constants, filled on the device: a tensor
-    built from a list would be a host-to-device copy, which synchronizes
-    the stream."""
+    built from a list, or an element assigned a Python float, is a
+    host-to-device copy, which synchronizes the stream; `fill_` passes the
+    value to the fill kernel."""
     out = torch.empty(len(values), dtype=torch.float32, device=device)
     for k, v in enumerate(values):
-        out[k] = float(v)
+        out[k].fill_(float(v))
     return out
 
 

@@ -143,8 +143,9 @@ class FullSlam(odo.StreamingOdometry):
     odometry driver plus a device keyframe ring; `finalize_device` runs
     loop closure + graph solve on it, `keyframes()` reads it back."""
 
-    # The dense pose-graph solve bounds K at graph.pcg.DENSE_MAX_POSES;
-    # the JAX package goes on to 16384 keyframes with its PCG solver.
+    # Above graph.pcg.DENSE_MAX_POSES the finalize solves by matrix-free
+    # PCG, so the ring is bounded by device memory: 16384 keyframes,
+    # ~32 km at 2 m spacing.
     MAX_KF_CAPACITY = 16384
 
     def __init__(self, calib, *, model: str = "hdl32",

@@ -324,8 +324,9 @@ class SlamPipeline:
     # --- graph solves and the map ------------------------------------------
 
     def _solve_graph(self) -> None:
-        """Pose-only solve of the host graph on the pipeline's device (a
-        multi-device session overrides the solve primitives)."""
+        """Pose-only solve of the host graph on the pipeline's device,
+        dense up to pcg.DENSE_MAX_POSES cropped poses and matrix-free PCG
+        above (a multi-device session overrides the solve primitives)."""
         g = self.graph
         Kc, cropped, _ = crop_graph(g.arrays(self.device), g.n_poses, 0,
                                     g.n_edges, 0)
@@ -336,7 +337,8 @@ class SlamPipeline:
 
     def _solve_graph_landmarks(self) -> None:
         """Landmark-aided solve (Schur-eliminated landmarks) of the host
-        graph on the pipeline's device."""
+        graph on the pipeline's device: the dense Schur solve up to
+        pcg.DENSE_MAX_POSES cropped poses, the landmark-Schur PCG above."""
         g = self.graph
         Kc, cropped, Mc = crop_graph(g.arrays(self.device), g.n_poses,
                                      g.n_landmarks, g.n_edges, g.n_obs)
