@@ -4,7 +4,8 @@ user-facing pipeline from pcap to trajectory, landmarks and tiled map,
 and the matrix-free PCG graph solvers that sessions above 2048 keyframes
 run.
 
-Run from the repository root on a machine with an NVIDIA H100:
+Run on a machine with an NVIDIA H100, from the repository root or any
+other directory (the script puts its own directory first on sys.path):
 
     python3 chip_smoke.py
 
@@ -26,9 +27,12 @@ code is non-zero:
                 bulk path's, closure verification's and M = 1000 and 1.
                 Every time beside its bound and, for the gathers, the
                 library call torch.index_select.  The chain kernel
-                (chain_factor, chain_solve) vs its plain version at
-                K = 64, 4096, 16384 on the solver's own blocks, both vs a
-                float64 CPU run; ns per step.
+                (chain_factor, chain_solve) vs its plain version on the
+                solver's own blocks at CHAIN_SHAPES (1 step, both sides of
+                the 32- and 64-step chunks, 4096, 4097, 16384), both vs a
+                float64 CPU run, two calls equal to the bit; at 4096 and
+                16384 ns per step beside the latency bound (the dependent
+                operations of a step at the card's top SM clock).
   4. drive    — StreamingOdometry on two simulated 1.2 s HDL-32 drives
                 (INS at truth; INS drifting 0.3 m/s) with the production
                 registration config, checked against the simulator's truth
@@ -45,7 +49,7 @@ code is non-zero:
                 (tests/fixtures/fullslam_golden_seed3.npz): frames and
                 times, keyframes, candidate pairs, accepted closures,
                 corrected trajectory (x, y and z), ATE; launches
-                counted; the spread of z across runs; frames/s.
+                counted; the 5 measured runs equal to the bit; frames/s.
   7. pipeline — the same drive written as a pcap + INS log by the port's
                 simulator, through SlamPipeline(device="cuda").
                 run_offline_batched(batch=4096, defer_map=True) +
@@ -55,7 +59,9 @@ code is non-zero:
                 (tests/fixtures/pipeline_golden_seed3.npz): a warm run and
                 3 measured runs, each checked (frames and times,
                 keyframes, closure pairs, trajectory, landmark counts,
-                ATE) with its launches counted; pipeline frames/s as
+                ATE) with its launches counted, all 3 equal to the bit
+                (trajectory, keyframes, closures, landmarks, map counts);
+                pipeline frames/s as
                 bench.py::run_full_slam defines it; then one run that
                 synchronizes at each stage's end, for the stage seconds.
   8. pcg      — solve_pcg at K = 16384 (16000 poses) and
@@ -92,6 +98,10 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# The port is imported from this checkout, whatever the working directory
+# and under `python -P` (which leaves the script's directory off
+# sys.path).
+sys.path.insert(0, REPO)
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "odometry_golden_seed23.npz")
 FULLSLAM_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                "fullslam_golden_seed3.npz")
@@ -131,12 +141,15 @@ FP32_FLOP_PER_S = 67e12
 # the 29 sums 69 (an FMA counts 2).
 NE_FLOP_PER_HIT = 110
 # Corrected trajectory against the JAX golden: x, y within 5 cm; z within
-# Z_LIMIT_M.  On this drive the stream's height drifts by metres in both packages, and the
-# port's z lands 0.006-0.137 m from the golden's on the card (0.141 m
-# between its own runs) and 0.105 m on the CPU, while every accepted
-# closure's measured z agrees to 1e-6 m: the bound is ~1.8x the largest
-# reading (see _check_fullslam).
-Z_LIMIT_M = 0.25
+# Z_LIMIT_M.  On this drive the stream's height drifts by metres in both
+# packages, so z follows the order of float sums: with every sum of the
+# port in a fixed order, its z lands 0.0185 m (phase fullslam) and 0.0131
+# m (phase pipeline) from the golden's on the card, the same bits in every
+# run, and 0.105 m on the CPU (other sum orders in torch's CPU ops), while
+# every accepted closure's measured z agrees to 1e-6 m.  The bound is the
+# CPU reading, the largest, with 0.045 m (43%) margin, so a rehearsal on
+# the CPU holds it too (see _check_fullslam).
+Z_LIMIT_M = 0.15
 PCG_GOLDEN = os.path.join(REPO, "tests", "fixtures", "pcg_golden.npz")
 # The PCG solvers' graphs (pcg_graph): the JAX package's own scale tests
 # (tests/test_graph.py), the pose-only chain run to 16000 poses in the
@@ -157,16 +170,36 @@ PCG_ITERATIONS, PCG_CG_ITERS = 8, 96
 # solve the JAX package lands at 0.61 of it on this graph (a converged
 # fit of the noisy landmarks, not the truth), so that gate is held here.
 LANDMARK_TEST_SOLVE = (4, 64)
-# Chain lengths the chain kernel is checked at: short, the long drive's
-# 4096-row ring, the ring's cap.
-CHAIN_SHAPES = (64, 4096, 16384)
+# Chain lengths the chain kernel is checked at: one step, both sides of
+# the old 32-step and the current 64-step staging chunk, the long drive's
+# 4096-row ring and one past it, the ring's cap.  Timed at CHAIN_TIMED.
+CHAIN_SHAPES = (1, 31, 32, 33, 63, 64, 65, 4096, 4097, 16384)
+CHAIN_TIMED = (4096, 16384)
+# The chain kernel's latency bound: each step of its recurrences waits on
+# the step before, so a call takes at least K x (the dependent float
+# operations of one step) x OP_CYCLES cycles at the card's top SM clock
+# (nvidia-smi clocks.max.sm).  OP_CYCLES is the latency assumed for an
+# FMA, FADD or FMUL on Hopper, and for each instruction of the reciprocal.
+OP_CYCLES = 4
+# A solve step: forward 6 FMAs and the subtraction from r; backward 6
+# FMAs, the subtraction from y, then 6 FMAs.
+CHAIN_SOLVE_OPS = 20
+# The dependent instructions of chain_factor_kernel's IEEE reciprocal
+# 1.0f / pivot on its fast path, read from its SASS (profile_chain.py
+# prints them): MUFU.RCP, FFMA, FADD.FTZ, FFMA.
+CHAIN_RCP_OPS = 4
+# A factor step: L's 6-FMA chain, U's 6 FMAs and the subtraction from D,
+# then per pivot column the reciprocal, the scaling of the pivot row and
+# the eliminating FMA (the pivot search runs beside the reciprocal).
+CHAIN_FACTOR_OPS = 13 + 6 * (CHAIN_RCP_OPS + 2)
 LONG_DRIVE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                  "long_drive_golden_seed3.npz")
-# The long drive's 2-D ATE against the golden's (0.776 m): the port's own
-# runs on the card spread over 0.54-1.09 m (phase_long_drive), so the
-# bound is that spread's top, 0.31 m above the golden's, with 0.19 m
-# margin.
-LONG_DRIVE_ATE_M = 0.50
+# The long drive's 2-D ATE against the golden's (0.776 m): with every sum
+# in a fixed order the port's runs on the card read 0.7213 m, the same in
+# every run (the stream's 0.8399 m).  Float sums in other orders moved it
+# over 0.54-1.09 m, so the bound, golden + 0.15 m = 0.926 m, leaves
+# 0.205 m (28%) above the reading for a change that reorders sums.
+LONG_DRIVE_ATE_M = 0.15
 
 
 def _quat_mul_np(a, b):
@@ -902,7 +935,7 @@ def phase_fullslam(device, smi: str) -> dict:
     seq, track, engine = _fullslam_drive(device, drive, cfg["model"])
     warm_eng = engine()            # first run: loads the card's libraries
     run_fullslam(seq, track, warm_eng, drive, cfg["budget_floor"])
-    runs, z = [], []
+    runs, hosts = [], []
     for _ in range(FULLSLAM_RUNS):
         eng = engine()
         _reset_launches()
@@ -910,24 +943,41 @@ def phase_fullslam(device, smi: str) -> dict:
                                              cfg["budget_floor"])
         runs.append((stream_s, fin_s, _launches()))
         _check_fullslam(host, eng, seq, drive, gold, runs[-1][2], device)
-        n = int(host["n_frames"])
-        z.append((host["traj_t"][:n, 2], host["odometry_t"][:n, 2]))
+        hosts.append(host)
+    n = int(hosts[0]["n_frames"])
     stream_s, fin_s = (float(np.median([r[i] for r in runs]))
                        for i in (0, 1))
     launches = runs[-1][2]
     total = stream_s + fin_s
-    # The port's own spread between runs, a witness apart from the golden.
-    spread = [float(np.ptp(np.stack([r[i] for r in z]), axis=0).max())
-              for i in (0, 1)]
-    print(f"[fullslam] z spread across the {FULLSLAM_RUNS} runs: corrected "
-          f"{spread[0]:.3e} m, odometry {spread[1]:.3e} m (max over frames "
-          f"of max - min)", flush=True)
+    # The stream's and the finalize's float sums run in a fixed order, so
+    # every run gives the same bits: trajectories, keyframes, candidate
+    # and accepted pairs, measurements, solved poses, all of it.
+    _check_repeats("fullslam", hosts)
+    print(f"[fullslam] the {FULLSLAM_RUNS} runs equal to the bit in all "
+          f"{len(hosts[0])} outputs (trajectory, odometry, keyframes, "
+          "candidate and accepted pairs, closure measurements, solved "
+          "poses): z spread 0 m", flush=True)
     print(f"[fullslam] stream {stream_s:.3f} s + finalize {fin_s:.3f} s = "
           f"{total:.3f} s: {n / total:.1f} frames/s ({n / stream_s:.1f} "
           f"stream only; medians of {FULLSLAM_RUNS} runs, each from a fresh "
           f"engine, each checked); launches per run {launches}; {smi}",
           flush=True)
     return launches
+
+
+def _check_repeats(where: str, runs: list) -> None:
+    """Every run's outputs (dicts of numpy arrays and scalars) equal to
+    the first run's to the bit."""
+    first = runs[0]
+    for k, run in enumerate(runs[1:], 1):
+        if run.keys() != first.keys():
+            raise AssertionError(f"{where}: run {k} has other outputs")
+        differ = [key for key in first
+                  if np.asarray(run[key]).tobytes()
+                  != np.asarray(first[key]).tobytes()]
+        if differ:
+            raise AssertionError(f"{where}: run {k} differs from run 0 in "
+                                 f"{differ}")
 
 
 def _check_fullslam(host, eng, seq, drive, gold, launches, device):
@@ -973,10 +1023,10 @@ def _check_fullslam(host, eng, seq, drive, gold, launches, device):
         raise AssertionError("fullslam: non-finite corrected trajectory")
     # x, y within 5 cm; z within Z_LIMIT_M: on this drive the odometry's
     # height drifts by metres in both packages (z is barely observed), so
-    # float sums taken in another order move the stream's z by a
-    # decimetre, between the port's own runs on the card as against the
-    # golden.  The finalize's correction (corrected - stream) is printed
-    # beside it: it moves with the stream's z, a few cm at most.
+    # float sums taken in another order (the JAX package's, torch's CPU
+    # ops') move the stream's z by up to a decimetre.  The finalize's
+    # correction (corrected - stream) is printed beside it: it moves with
+    # the stream's z, a few cm at most.
     off = float(np.linalg.norm(pos[:, :2] - g("positions")[:, :2],
                                axis=1).max())
     off_z = float(np.abs(pos[:, 2] - g("positions")[:, 2]).max())
@@ -1088,7 +1138,7 @@ def phase_pipeline(device, smi: str, fullslam_launches: dict,
     with tempfile.TemporaryDirectory() as tmp:
         paths, seq = write_pipeline_drive(drive, cfg["model"], tmp)
         run_pipeline(paths, drive, device)      # warm: the card's libraries
-        walls, launches = [], None
+        walls, launches, outs = [], None, []
         for _ in range(PIPELINE_RUNS):
             _reset_launches()
             pipe, res, wall = run_pipeline(paths, drive, device)
@@ -1096,6 +1146,21 @@ def phase_pipeline(device, smi: str, fullslam_launches: dict,
             _check_pipeline(pipe, res, seq, gold, name, launches,
                             fullslam_launches, device)
             walls.append(wall)
+            g = pipe.graph
+            outs.append({
+                **{k: res[k] for k in ("times_us", "positions", "quaternions",
+                                       "keyframe_positions",
+                                       "keyframe_times_us", "n_landmarks",
+                                       "n_landmark_obs", "map_patches")},
+                "closures": np.asarray(pipe.closures),
+                "landmarks": g.l_pos[:g.n_landmarks],
+                "obs_kept": g.o_ok[:g.n_obs],
+                "map_count": [float(pipe.map._materialize(
+                    k, create=False).count.sum()) for k in sorted(
+                        set(pipe.map._patches) | set(pipe.map._spilled))]})
+        # Fixed-order sums in the stream, the finalize and the graph
+        # solves: the runs repeat to the bit.
+        _check_repeats("pipeline", outs)
         sync = (torch.cuda.synchronize if device.type == "cuda" else None)
         _, res, wall_sync = run_pipeline(paths, drive, device,
                                          StageTimers(sync=sync))
@@ -1106,7 +1171,9 @@ def phase_pipeline(device, smi: str, fullslam_launches: dict,
           f"(pipeline frames/s as bench.py::run_full_slam: run_offline_"
           f"batched + finalize, pcap read included; median of "
           f"{PIPELINE_RUNS} runs {[round(w, 3) for w in walls]}, each "
-          f"checked); launches per run {launches}; {smi}", flush=True)
+          f"checked, equal to the bit in trajectory, keyframes, closures, "
+          f"landmarks and map counts); launches per run {launches}; {smi}",
+          flush=True)
     print(f"[pipeline] stage seconds, synchronized at each stage's end "
           f"({wall_sync:.3f} s wall, {sum(stages.values()):.3f} s in "
           f"stages): {stages}; {smi}", flush=True)
@@ -1213,25 +1280,44 @@ def _chain_err(x, ref) -> float:
     return float((x.double().cpu() - ref).abs().max() / ref.abs().max())
 
 
+def sm_clock_hz() -> float:
+    """The card's top SM clock (nvidia-smi clocks.max.sm), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def chain_latency_ms(K: int, ops: int, clock_hz: float) -> float:
+    """The least time K dependent steps of `ops` operations can take."""
+    return K * ops * OP_CYCLES / clock_hz * 1e3
+
+
 def phase_chain(device) -> dict:
     """The chain kernel (chain_factor, chain_solve) against its plain
     version on the card at CHAIN_SHAPES: |Δ| ≤ 1e-4·max|ref| + 1e-6 on
     Uinv, L and z (float32 6×6 inverses and products in another order,
     carried through K steps), the solve checked on the plain factors so
     each entry point is held alone; both against a float64 run of the same
-    recurrence on the CPU (printed).  Times by CUDA events, ns per step.
-    Returns the kernel record: one factor and one solve at K = 4096, the
-    unit of a Gauss-Newton iteration's preconditioner (one factor, then
-    cg_iters + 1 solves)."""
+    recurrence on the CPU (printed); two calls equal to the bit.  At
+    CHAIN_TIMED, times by CUDA events, ns per step and the share of the
+    latency bound reached (chain_latency_ms).  Returns the kernel record:
+    one factor and one solve at K = 4096, the unit of a Gauss-Newton
+    iteration's preconditioner (one factor, then cg_iters + 1 solves)."""
     from veloslam_tpu_torch.graph import chain
     record = {}
+    clock = sm_clock_hz()
     for K in CHAIN_SHAPES:
         D, B, r = chain_inputs(K, device)
         U, L = chain.chain_factor(D, B)
         Up, Lp = chain.chain_factor_plain(D, B)
         z = chain.chain_solve(Up, Lp, B, r)
         zp = chain.chain_solve_plain(Up, Lp, B, r)
+        again = (*chain.chain_factor(D, B), chain.chain_solve(Up, Lp, B, r))
         torch.cuda.synchronize()
+        if not all(_same_bits(a, b) for a, b in zip((U, L, z), again)):
+            raise AssertionError(f"chain at K={K}: two calls differ")
         errs = {}
         for name, x, ref in (("Uinv", U, Up), ("L", L, Lp), ("z", z, zp)):
             d = (x - ref).abs().max().item()
@@ -1246,6 +1332,14 @@ def phase_chain(device) -> dict:
             ("Uinv", U64, (U, Up)), ("L", L64, (L, Lp)),
             ("z", z64, (chain.chain_solve(U, L, B, r), zp)))
             for who, x in zip(("kernel", "plain"), pair)}
+        line = (f"[kernel] chain K={K}: two calls equal to the bit, within "
+                f"tolerance of the plain version (|d| Uinv {errs['Uinv']:.3g}"
+                f", L {errs['L']:.3g}, z {errs['z']:.3g}); relative to a "
+                "float64 CPU run: "
+                + " ".join(f"{k} {v:.3g}" for k, v in vs64.items()))
+        if K not in CHAIN_TIMED:
+            print(line, flush=True)
+            continue
         runs = 20 if K <= 4096 else 5
         t = {"factor": _events_ms(lambda: chain.chain_factor(D, B), runs),
              "solve": _events_ms(lambda: chain.chain_solve(U, L, B, r), runs),
@@ -1254,27 +1348,30 @@ def phase_chain(device) -> dict:
              "solve_plain": _events_ms(
                  lambda: chain.chain_solve_plain(U, L, B, r),
                  1 if K > 4096 else 3)}
-        # Bytes each entry point must move: the factor reads D, B and
-        # writes Uinv, L (576 B a pose); the solve reads Uinv, L, B, r and
-        # writes z (480 B).  Operations: 864 FMAs a factor step (L, U, the
-        # Gauss-Jordan inverse), 108 a solve step.
+        lat = {"factor": chain_latency_ms(K, CHAIN_FACTOR_OPS, clock),
+               "solve": chain_latency_ms(K, CHAIN_SOLVE_OPS, clock)}
+        # The pair's bytes / operations bound: the factor reads D, B and
+        # writes Uinv, L (576 B a pose), the solve reads Uinv, L, B, r and
+        # writes z (480 B); 864 FMAs a factor step (L, U, the Gauss-Jordan
+        # inverse), 108 a solve step.
         bound_ms, bound_by = _bound(1056 * K, 2 * 972 * K)
-        print(f"[kernel] chain K={K}: within tolerance of the plain version "
-              f"(|d| Uinv {errs['Uinv']:.3g}, L {errs['L']:.3g}, z "
-              f"{errs['z']:.3g}); relative to a float64 CPU run: "
-              + " ".join(f"{k} {v:.3g}" for k, v in vs64.items())
-              + f"; factor {t['factor']:.4f} ms ({t['factor'] * 1e6 / K:.1f} "
-              f"ns/step), solve {t['solve']:.4f} ms "
-              f"({t['solve'] * 1e6 / K:.1f} ns/step) per call (CUDA events, "
-              f"median of {runs}); plain factor {t['factor_plain']:.2f} ms, "
-              f"solve {t['solve_plain']:.2f} ms; bound of the pair "
-              f"{bound_ms * 1e3:.2f} µs ({bound_by}; the recurrence is "
-              "bound by latency)", flush=True)
+        print(line + "; " + "; ".join(
+            f"{k} {t[k]:.4f} ms per call ({t[k] * 1e6 / K:.1f} ns/step), "
+            f"latency bound {lat[k]:.4f} ms ({lat[k] * 1e6 / K:.1f} ns/step:"
+            f" {ops} dependent operations x {OP_CYCLES} cycles at "
+            f"{clock / 1e9:.3f} GHz), {lat[k] / t[k]:.0%} of it"
+            for k, ops in (("factor", CHAIN_FACTOR_OPS),
+                           ("solve", CHAIN_SOLVE_OPS)))
+              + f" (CUDA events, median of {runs}); plain factor "
+              f"{t['factor_plain']:.2f} ms, solve {t['solve_plain']:.2f} ms; "
+              f"bytes/operations bound of the pair {bound_ms * 1e3:.2f} µs "
+              f"({bound_by})", flush=True)
         if K == 4096:
             record = {"max_abs_err": max(errs.values()),
                       "ms": t["factor"] + t["solve"],
                       "plain_ms": t["factor_plain"] + t["solve_plain"],
                       "bound_ms": bound_ms, "bound_by": bound_by,
+                      "latency_bound_ms": lat["factor"] + lat["solve"],
                       "library_ms": None}
     return record
 
@@ -1554,11 +1651,10 @@ def phase_long_drive(device, smi: str) -> dict:
     of the golden's, and finalize() (the landmark PCG solves: posts seen
     on every lap tie the drifted laps together) must lower the stream's
     ATE (after run_offline_batched, whose device finalize finds no
-    closure on this drive).  Float sums in no fixed order in the stream
-    move its keyframes a median 5-16 cm between runs and its ATE over
-    0.80-1.20 m; after the finalize, 0.54-1.09 m in 17 runs on the card
-    (0.07-0.29 m below the stream's in each of 14 with both measured).
-    Returns the kernel launches of the run."""
+    closure on this drive).  Every float sum of the run is taken in a
+    fixed order, so the run repeats to the bit (2638 keyframes, as the
+    golden's; ATE 0.7213 m, the stream's 0.8399 m).  Returns the kernel
+    launches of the run."""
     import tempfile
 
     from veloslam_tpu_torch.config import SlamConfig

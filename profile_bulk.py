@@ -18,6 +18,12 @@ runtime's kernel-launch calls that torch.profiler records.  Then it
 times the int32 gather kernel on the paths' own index streams
 (`time_path_gathers`).  It checks nothing else: chip_smoke.py holds both
 loops' paths to their goldens.
+
+    python3 profile_bulk.py sums
+
+times the bulk step instead with the voxel grids' segment sums in a
+fixed order (as the port takes them) against index_add_, in turns
+(`sums_ab`).
 """
 
 from __future__ import annotations
@@ -154,6 +160,44 @@ def time_path_gathers(step, verify) -> None:
               flush=True)
 
 
+def index_add_sums(data, ids, num_segments: int):
+    """voxel.build_grid's and merge_stats' segment sums as they were
+    taken before the fixed-order sums: index_add_ over every row (float
+    atomics on the card), the trash segment cut off afterwards."""
+    from veloslam_tpu_torch.core.segment import segment_sum
+    F, P = ids.shape
+    S = num_segments + 1
+    flat = (ids.long() + S * torch.arange(F, device=ids.device)[:, None])
+    out = segment_sum(data.reshape(F * P, *data.shape[2:]), flat.reshape(-1),
+                      F * S)
+    return out.reshape(F, S, *data.shape[2:])[:, :num_segments]
+
+
+def sums_ab(device, smi: str) -> None:
+    """The bulk step with the grid sums in a fixed order (as shipped) and
+    with index_add_ (index_add_sums), in the order fixed, index_add,
+    index_add, fixed: ms per batch (median of 5, CUDA events), and whether
+    two steps from the same state give the same bits (map and
+    trajectory)."""
+    from veloslam_tpu_torch.registration import voxel as vx
+    fixed = vx.segment_sum_sorted
+    sums = {"fixed": fixed, "index_add": index_add_sums}
+    step = bulk_step(device)
+
+    def leaves():
+        st, _ = step()
+        return [st.traj_t, st.traj_q, st.map_grid.mean, st.map_grid.cov,
+                st.map_grid.count]
+    for name in ("fixed", "index_add", "index_add", "fixed"):
+        vx.segment_sum_sorted = sums[name]
+        ms = cs._events_ms(step, 5)
+        same = all(cs._same_bits(a, b) for a, b in zip(leaves(), leaves()))
+        print(f"[profile_bulk] grid sums {name}: bulk step {ms:.3f} ms per "
+              f"batch (median of 5, CUDA events); two steps equal to the "
+              f"bit: {same}; {smi}", flush=True)
+    vx.segment_sum_sorted = fixed
+
+
 def main() -> int:
     from veloslam_tpu_torch.core import se3
     from veloslam_tpu_torch.registration import gicp
@@ -162,6 +206,9 @@ def main() -> int:
     smi = cs.phase_device()
     cs.phase_build()
     device = torch.device("cuda", 0)
+    if sys.argv[1:] == ["sums"]:
+        sums_ab(device, smi)
+        return 0
 
     # One GN iteration's inputs at the bulk shape.
     pts, q, t, mu, n, hit = cs._ne_inputs(96, 16384, seed=1, device=device,

@@ -283,6 +283,60 @@ def test_solve_with_landmarks_on_card_matches_cpu(card):
                                    err_msg=k)
 
 
+def test_dense_solves_repeat_to_the_bit_on_card(card):
+    """The dense pose-only and landmark-Schur solves twice on the card
+    give the same bits: index_put_(accumulate=True) sorts its indices and
+    adds each one's values in that order, and the landmark blocks sum on
+    a plan (optimize._assemble_landmark_terms)."""
+    from veloslam_tpu_torch.graph import pcg
+    g = _landmark_graph()
+    for solve, kw in ((pcg.solve_auto, {}),
+                      (pcg.solve_auto_landmarks, {"max_landmarks": g.M})):
+        runs = [solve(g.arrays(card), max_poses=g.K, iterations=6, **kw)[0]
+                for _ in range(2)]
+        for k in ("q", "t", "l_pos"):
+            a, b = (getattr(r, k) for r in runs)
+            assert torch.isfinite(a).all()
+            assert torch.equal(_bits(a), _bits(b)), (solve.__name__, k)
+
+
+def test_voxel_grids_repeat_to_the_bit_on_card(card):
+    """build_grid (4 stacked scans of 16384 points, 10% invalid, more
+    voxels than capacity) and merge_stats twice on the card give the same
+    bits (their segment sums run in key order), and the build agrees with
+    the CPU's: keys and counts exact, moments within float32 rounding."""
+    from veloslam_tpu_torch.registration import voxel as vx
+    rng = np.random.default_rng(12)
+    pts = rng.normal(0, 6, (4, 16384, 3)).astype(np.float32)
+    mask = rng.random((4, 16384)) < 0.9
+    origin = rng.normal(0, 1, (4, 3)).astype(np.float32)
+    vs = np.full(4, 0.5, np.float32)
+
+    def build(dev):
+        return vx.build_grid(*(torch.as_tensor(a, device=dev)
+                               for a in (pts, mask, origin, vs)),
+                             capacity=4096)
+    a, b = build(card), build(card)
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+    ref = build("cpu")
+    np.testing.assert_array_equal(a.keys.cpu().numpy(), ref.keys.numpy())
+    np.testing.assert_array_equal(a.count.cpu().numpy(), ref.count.numpy())
+    for k in ("mean", "cov"):
+        np.testing.assert_allclose(getattr(a, k).cpu().numpy(),
+                                   getattr(ref, k).numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    g0, g1 = (vx.VoxelGrid(*(x[f] for x in a)) for f in (0, 1))
+    m1 = vx.merge_stats(g0, g1._replace(origin=g0.origin,
+                                        voxel_size=g0.voxel_size),
+                        capacity=4096)
+    m2 = vx.merge_stats(g0, g1._replace(origin=g0.origin,
+                                        voxel_size=g0.voxel_size),
+                        capacity=4096)
+    for x, y in zip(m1, m2):
+        assert torch.equal(_bits(x), _bits(y))
+
+
 def test_integrate_scans_batch_on_card_matches_cpu(card):
     """The tiled map built on the card (batched transform + voxelize)
     against the same build on the CPU: tiles, voxel coordinates and counts
@@ -307,12 +361,19 @@ def test_integrate_scans_batch_on_card_matches_cpu(card):
                 atol=1e-4 * max(np.abs(want).max(), 1.0), err_msg=f)
 
 
-@pytest.mark.parametrize("K", [1, 33, 4096])
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 63, 64, 65, 4096, 4097,
+                               16384])
 def test_chain_kernel_matches_plain_on_card(card, K):
     """chain_factor and chain_solve on the card against their plain
     versions on the solver's own blocks (chip_smoke.chain_inputs: a
     drifted chain, the 1e6 gauge, the 2% floor): |Δ| ≤ 1e-4·max|ref| +
-    1e-6; LAUNCHES counts one launch per call."""
+    1e-6, at one step, both sides of the 32- and 64-step staging chunks,
+    the long drive's 4096-row ring and the ring's cap; LAUNCHES counts
+    one launch per call; a second call gives the same bits."""
     from chip_smoke import chain_inputs
     from veloslam_tpu_torch.graph import chain
     D, B, r = chain_inputs(K, card)
@@ -329,6 +390,69 @@ def test_chain_kernel_matches_plain_on_card(card, K):
         np.testing.assert_allclose(x.cpu().numpy(), ref, rtol=0,
                                    atol=1e-4 * np.abs(ref).max() + 1e-6,
                                    err_msg=name)
+    again = (*chain.chain_factor(D, B), chain.chain_solve(Up, Lp, B, r))
+    for x, y in zip((U, L, z), again):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+def _pivot_swaps(a: np.ndarray) -> list:
+    """The pivot rows Gauss-Jordan with partial pivoting picks for `a`
+    (6, 6), the rule of csrc/chain.cu: a strict > scan down from the
+    diagonal.  Returns, per column, whether a row swap was taken."""
+    m = np.concatenate([a.astype(np.float64), np.eye(6)], axis=1)
+    swaps = []
+    for c in range(6):
+        p = c
+        for r in range(c + 1, 6):
+            if abs(m[r, c]) > abs(m[p, c]):
+                p = r
+        swaps.append(p != c)
+        m[[c, p]] = m[[p, c]]
+        m[c] /= m[c, c]
+        for r in range(6):
+            if r != c:
+                m[r] -= m[r, c] * m[c]
+    return swaps
+
+
+def test_chain_factor_swaps_rows_at_every_pivot_on_card(card):
+    """Blocks built so that Gauss-Jordan swaps rows at every pivot column
+    but the last (a cyclic shift, each row's large entry one column to
+    its right, plus 1% noise; B = 0 so U_k = D_k): the kernel's inverses
+    against the plain version (torch.linalg.inv_ex) at the chain's
+    tolerance, and two calls equal to the bit."""
+    from veloslam_tpu_torch.graph import chain
+    K = 70
+    rng = np.random.default_rng(4)
+    shift = np.roll(np.eye(6), 1, axis=1)
+    D = (shift[None] * rng.uniform(1.0, 3.0, (K, 6, 1))
+         + 0.01 * rng.normal(size=(K, 6, 6))).astype(np.float32)
+    for k in range(K):
+        assert _pivot_swaps(D[k]) == [True] * 5 + [False]
+    Dt = torch.as_tensor(D, device=card)
+    B = torch.zeros_like(Dt)
+    U, L = chain.chain_factor(Dt, B)
+    U2, L2 = chain.chain_factor(Dt, B)
+    Up, Lp = chain.chain_factor_plain(Dt, B)
+    torch.cuda.synchronize()
+    assert torch.equal(L, torch.zeros_like(L))
+    ref = Up.cpu().numpy()
+    np.testing.assert_allclose(U.cpu().numpy(), ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max() + 1e-6)
+    assert torch.equal(_bits(U), _bits(U2)) and torch.equal(L, L2)
+
+
+def test_chain_factor_singular_block_gives_nan_on_card(card):
+    """A singular block gives a non-finite inverse (its pivot is 0 and
+    1 / 0 is inf), as jnp.linalg.inv does, and the blocks before it stay
+    finite."""
+    from veloslam_tpu_torch.graph import chain
+    D = torch.eye(6, device=card).repeat(5, 1, 1) * 2.0
+    D[3, 2] = D[3, 1]                     # rows 1 and 2 of block 3 equal
+    U, _ = chain.chain_factor(D, torch.zeros_like(D))
+    torch.cuda.synchronize()
+    assert torch.isfinite(U[:3]).all()
+    assert not torch.isfinite(U[3]).all()
 
 
 def test_chain_wrappers_check_inputs_on_card(card):

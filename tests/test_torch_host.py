@@ -183,6 +183,32 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_chip_smoke_imports_the_port_from_another_directory(tmp_path):
+    """chip_smoke.py's module body puts its own directory first on
+    sys.path, so `python3 chip_smoke.py` imports the port wherever it is
+    started from, even under `python -P` (no script directory on
+    sys.path): from an empty directory under -P, the port does not import
+    before the body runs and does after it."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(repo, "chip_smoke.py")
+    code = ("import runpy, sys\n"
+            "try:\n"
+            "    import veloslam_tpu_torch\n"
+            "    sys.exit('imported before the module body ran')\n"
+            "except ModuleNotFoundError:\n"
+            "    pass\n"
+            "runpy.run_path(sys.argv[1], run_name='not_main')\n"
+            "import veloslam_tpu_torch\n"
+            "print(veloslam_tpu_torch.__file__)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-P", "-c", code, script],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=tmp_path, env=env)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == os.path.join(repo, "veloslam_tpu_torch",
+                                              "__init__.py")
+
+
 def test_port_sources_never_import_jax():
     import pathlib
 

@@ -95,6 +95,30 @@ def test_small_pipeline_matches_jax(small):
         "landmarks", "graph_solve", "map_downdate"}
 
 
+def test_results_have_the_jax_keys_and_ins_health(small):
+    """results() after the 2 s drive has the JAX SlamPipeline.results()
+    keys, and ins_health equals the JAX package's: offline, only live
+    mode's INS datagram handler moves its counters, so both return them as
+    initialised (a fresh JAX pipeline)."""
+    pipe, res, _, _ = small
+    ref = JSlamPipeline().results()
+    assert set(res) == set(ref)
+    assert res["ins_health"] == ref["ins_health"]
+    assert pipe.results()["ins_health"] is not pipe.ins_health
+
+
+def test_use_dense_index_false_raises():
+    """registration.use_dense_index=False asks for the binary-search
+    correspondence lookup, which the port does not have: the pipeline
+    refuses it instead of running the dense index."""
+    import dataclasses
+    cfg = SlamConfig()
+    cfg = dataclasses.replace(cfg, registration=dataclasses.replace(
+        cfg.registration, use_dense_index=False))
+    with pytest.raises(ValueError, match="binary-search"):
+        SlamPipeline(cfg, device="cpu")
+
+
 def test_golden_config_is_bench_config():
     """The golden's drives and SlamConfigs are what the generator derives
     today from bench.py's full-SLAM config, and the port rebuilds each

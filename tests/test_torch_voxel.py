@@ -86,6 +86,55 @@ def test_merge_stats_matches_jax():
     _check_grid(got, want)
 
 
+def test_sorted_segment_sum_adds_rows_left_to_right():
+    """build_grid's and merge_stats' sum (core.segment.segment_sum_sorted)
+    adds each segment's rows in row order: on rows where float32 order
+    matters (1e8 + 1 rounds back to 1e8) it equals the left-to-right sum
+    to the bit, 1, where other orders give 0, 2 or 4; rows with the trash id
+    are in no segment; a batch row's segments are its own."""
+    from veloslam_tpu_torch.core.segment import segment_sum_sorted
+    vals = np.array([[1e8, 1.0, -1e8, 1.0, 5.0, 3.0, 7.0],
+                     [2.0, 1e8, 1.0, -1e8, 1.0, 4.0, 9.0]], np.float32)
+    ids = np.array([[0, 0, 0, 0, 2, 3, 3], [1, 1, 1, 1, 1, 3, 3]])
+    got = n(segment_sum_sorted(t(vals)[..., None], t(ids), 3))[..., 0]
+    want = np.zeros((2, 3), np.float32)
+    for f in range(2):
+        for p in range(7):
+            if ids[f, p] < 3:
+                want[f, ids[f, p]] = np.float32(want[f, ids[f, p]]
+                                                + vals[f, p])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [[1.0, 0.0, 5.0], [0.0, 1.0, 0.0]])
+
+
+def test_sorted_segment_sum_matches_index_add_and_keeps_trash_short():
+    """segment_sum_sorted on build_grid's own segments (a 6000-point cloud,
+    10% invalid, capacity 300 so voxels overflow into the trash) against
+    segment_sum (index_add_) with the trash rows dropped, within float32
+    rounding, equal to the bit on the CPU, where both add in row order;
+    and the trash lengths: at most 32 rows each, adding up to the trash."""
+    from veloslam_tpu_torch.core.segment import (_TRASH_ROWS, _trash_lengths,
+                                                 segment_sum,
+                                                 segment_sum_sorted)
+    pts, mask = _cloud(7)
+    keys = vx.pack_keys(t(pts), t(mask), t(np.zeros(3, np.float32)),
+                        t(0.5, np.float32))
+    sk, order = torch.sort(keys, stable=True)
+    _, seg = vx._segments(sk[None], 300)
+    data = t(np.random.default_rng(7).normal(size=(6000, 13))
+             .astype(np.float32))[order][None]
+    got = segment_sum_sorted(data, seg, 300)[0]
+    want = segment_sum(data[0], seg[0], 301)[:300]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, want)
+    n_trash = int((seg == 300).sum())
+    assert n_trash > 600
+    lengths = _trash_lengths(torch.tensor([n_trash, 0, 5]), 6000)
+    assert lengths.shape == (3, -(-6000 // _TRASH_ROWS))
+    assert int(lengths.max()) <= _TRASH_ROWS
+    assert lengths.sum(1).tolist() == [n_trash, 0, 5]
+
+
 def test_rebase_grid_matches_jax():
     g = _jgrid(*_cloud(4, spread=40.0), np.zeros(3, np.float32), 0.5, 4096)
     for center in ([30.2, -11.7, 0.4], [260.0, 0.0, 0.0]):   # 2nd drops

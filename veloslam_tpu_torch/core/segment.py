@@ -1,7 +1,8 @@
 """Segment reductions and a sync-free scalar gather — the torch
 counterparts of jax.ops.segment_sum / segment_min and of indexing by a
-traced scalar — and segment sums in a fixed order over a plan made once
-for ids that many sums share.
+traced scalar — and segment sums in a fixed order: over rows already
+sorted by segment, or over a plan made once for ids that many sums
+share.
 
 Empty segments take the reduction's identity (0 for a sum, the dtype's
 max for a min), as jax.ops does; callers read those values for empty
@@ -52,11 +53,18 @@ def segment_plan(ids: torch.Tensor, num_segments: int,
     counts = torch.zeros(num_segments + 1, dtype=torch.int64,
                          device=ids.device).index_add_(
                              0, ids, torch.ones_like(ids))
-    n_trash = -(-ids.shape[0] // _TRASH_ROWS)
-    trash = torch.clamp(counts[-1] - _TRASH_ROWS * torch.arange(
-        n_trash, device=ids.device), 0, _TRASH_ROWS)
     return SegmentPlan(torch.argsort(ids, stable=True),
-                       torch.cat([counts[:-1], trash]), num_segments)
+                       torch.cat([counts[:-1],
+                                  _trash_lengths(counts[-1], ids.shape[0])]),
+                       num_segments)
+
+
+def _trash_lengths(n_trash_rows: torch.Tensor, rows: int) -> torch.Tensor:
+    """(..., ceil(rows / _TRASH_ROWS)) lengths of trash segments that hold
+    n_trash_rows (...,) rows, _TRASH_ROWS each and the rest in the last."""
+    n = -(-rows // _TRASH_ROWS)
+    return torch.clamp(n_trash_rows[..., None] - _TRASH_ROWS * torch.arange(
+        n, device=n_trash_rows.device), 0, _TRASH_ROWS)
 
 
 def segment_sum_planned(data: torch.Tensor, plan: SegmentPlan
@@ -68,6 +76,29 @@ def segment_sum_planned(data: torch.Tensor, plan: SegmentPlan
     out = torch.segment_reduce(data.index_select(0, plan.order), "sum",
                                lengths=plan.lengths, axis=0, unsafe=True)
     return out[:plan.num_segments]
+
+
+def segment_sum_sorted(data: torch.Tensor, ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """segment_sum of rows already in segment order, row by row of a
+    batch, each segment's rows added in row order: the same sums on every
+    run and device, where index_add_ on the card adds by atomics in no
+    fixed order.  data (F, P, ...), ids (F, P) never decreasing along P,
+    each in [0, num_segments]; rows with id num_segments are in no
+    segment (they come last in their row).  Returns (F, num_segments, ...),
+    empty segments 0.  The left-out rows go to trash segments of at most
+    _TRASH_ROWS rows, so no segment grows with them."""
+    F, P = ids.shape
+    S = num_segments
+    ids = ids.long()
+    counts = torch.zeros((F, S + 1), dtype=torch.int64,
+                         device=ids.device).scatter_add_(
+                             1, ids, torch.ones_like(ids))
+    lengths = torch.cat([counts[:, :S], _trash_lengths(counts[:, S], P)], 1)
+    out = torch.segment_reduce(data.reshape(F * P, *data.shape[2:]), "sum",
+                               lengths=lengths.reshape(-1), axis=0,
+                               unsafe=True)
+    return out.reshape(F, lengths.shape[1], *data.shape[2:])[:, :S]
 
 
 def segment_min(data: torch.Tensor, ids: torch.Tensor,

@@ -90,7 +90,11 @@ def _check(name: str, mats, vecs=()) -> None:
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("chain")
+    return bind(_build.load("chain"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a loaded build of csrc/chain.cu."""
     ptr = ctypes.c_void_p
     for fn, n_ptrs in ((lib.veloslam_chain_factor, 4),
                        (lib.veloslam_chain_solve, 5)):

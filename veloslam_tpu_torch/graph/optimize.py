@@ -28,7 +28,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from veloslam_tpu_torch.core import se3
-from veloslam_tpu_torch.core.segment import segment_sum
+from veloslam_tpu_torch.core.segment import segment_plan, segment_sum_planned
 from veloslam_tpu_torch.graph.posegraph import GraphArrays
 
 
@@ -150,6 +150,10 @@ def _assemble_pose_system(g: GraphArrays, max_poses: int):
     six = torch.arange(6, device=ei.device)
     rows = torch.cat([ei[:, None] * 6 + six, ej[:, None] * 6 + six], dim=1)
     E = rows.shape[0]
+    # index_put_(accumulate=True) on a CUDA tensor sorts the indices
+    # stably and adds each index's values in that order, so it repeats to
+    # the bit (tests/test_torch_cuda.py holds two solves equal), unlike
+    # index_add_'s float atomics.
     H = r.new_zeros((6 * K, 6 * K))
     H.index_put_((rows[:, :, None].expand(E, 12, 12),
                   rows[:, None, :].expand(E, 12, 12)), blocks,
@@ -177,8 +181,9 @@ def _assemble_landmark_terms(g: GraphArrays, max_poses: int,
                              obs_huber_delta: float = 0.5):
     """Landmark-coupled terms: App-add (6K, 6K), b_p-add (6K,), All
     (M, 3, 3), b_l (M, 3), the pose-coupling tensor T (M, 3, 6K) and the
-    cost, with _obs_terms' Huber weights.  The accumulating scatters sum
-    in no fixed order on CUDA."""
+    cost, with _obs_terms' Huber weights.  Every sum runs in a fixed order
+    (see _assemble_pose_system); All and b_l on a plan of the observed
+    landmarks."""
     K, M = max_poses, max_landmarks
     oi, ol = g.o_i.long(), g.o_l.long()
     r, Jp, Jl, w = _obs_terms(g, obs_huber_delta)
@@ -194,8 +199,9 @@ def _assemble_landmark_terms(g: GraphArrays, max_poses: int,
          rows_p[:, None, :].expand(O, 6, 6)), app, accumulate=True)
     b_p = r.new_zeros(6 * K).index_put_(
         (rows_p,), torch.einsum("ori,or->oi", Jpw, r), accumulate=True)
-    All = segment_sum(torch.einsum("ori,orj->oij", Jlw, Jl), ol, M)
-    b_l = segment_sum(torch.einsum("ori,or->oi", Jlw, r), ol, M)
+    plan = segment_plan(ol, M)
+    All = segment_sum_planned(torch.einsum("ori,orj->oij", Jlw, Jl), plan)
+    b_l = segment_sum_planned(torch.einsum("ori,or->oi", Jlw, r), plan)
     Apl = torch.einsum("ori,orj->oij", Jpw, Jl)                   # (O, 6, 3)
     # T_l = Σ_o [rows_o ⊗ Apl_o]: one accumulating scatter.
     three = torch.arange(3, device=oi.device)

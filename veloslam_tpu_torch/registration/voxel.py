@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from veloslam_tpu_torch.core.segment import segment_min, segment_sum
+from veloslam_tpu_torch.core.segment import segment_min, segment_sum_sorted
 from veloslam_tpu_torch.registration.gather import gather_i32
 
 # Sentinel for missing/invalid voxel keys (sorts last).  It is also the
@@ -105,8 +105,9 @@ def build_grid(pts, mask, origin, voxel_size, *, capacity: int,
                bits: int = 10) -> VoxelGrid:
     """Build a voxel-Gaussian grid from (P, 3) points + validity mask:
     stable sort by key → segment ids → one 13-channel segment sum
-    (count, first and second moments about the voxel centre).  Voxels past
-    `capacity` in key order are dropped.
+    (count, first and second moments about the voxel centre), each
+    voxel's rows added in key order, so a build repeats to the bit on the
+    card.  Voxels past `capacity` in key order are dropped.
 
     A batch of F independent scans, pts (F, P, 3) with origin (F, 3) and
     voxel_size (F,), gives F stacked grids (every leaf with a leading F):
@@ -133,8 +134,7 @@ def build_grid(pts, mask, origin, voxel_size, *, capacity: int,
     w = valid.to(torch.float32)[..., None]
     outer = (sp[..., :, None] * sp[..., None, :]).reshape(F, -1, 9)
     payload = torch.cat([w, sp * w, outer * w], dim=-1)        # (F, P, 13)
-    sums = segment_sum(payload.reshape(-1, 13), seg, F * n_seg
-                       ).reshape(F, n_seg, 13)[:, :capacity]
+    sums = segment_sum_sorted(payload, seg_id, capacity)      # (F, V, 13)
     seg_keys = segment_min(torch.where(valid, sk, INVALID_KEY).reshape(-1),
                            seg, F * n_seg).reshape(F, n_seg)[:, :capacity]
     seg_keys = seg_keys.contiguous()    # searched row by row by lookup()
@@ -192,7 +192,8 @@ def lookup_nearest(grid: VoxelGrid, pts, mask, usable,
 def merge_stats(grid: VoxelGrid, other: VoxelGrid, *,
                 capacity: int) -> VoxelGrid:
     """Merge two grids' sufficient statistics into a new grid of the given
-    capacity (both must share origin and voxel size)."""
+    capacity (both must share origin and voxel size), each voxel's rows
+    added in key order, as build_grid does."""
     def moments(g: VoxelGrid):
         # Padding rows contribute zero via count == 0.
         c = g.count[:, None]
@@ -204,7 +205,8 @@ def merge_stats(grid: VoxelGrid, other: VoxelGrid, *,
     payload = torch.cat([moments(grid), moments(other)])
     sk, order = torch.sort(keys, stable=True)
     valid, seg_id = _segments(sk, capacity)
-    sums = segment_sum(payload[order], seg_id, capacity + 1)[:capacity]
+    sums = segment_sum_sorted(payload[order][None], seg_id[None],
+                              capacity)[0]
     seg_keys = segment_min(torch.where(valid, sk, INVALID_KEY), seg_id,
                            capacity + 1)[:capacity]
     count, mean, cov = _stats(sums, seg_keys, grid.origin, grid.voxel_size)

@@ -116,6 +116,13 @@ class SlamPipeline:
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "run on the CPU (the kernels' plain versions)")
         self.cfg = config or SlamConfig()
+        if not self.cfg.registration.use_dense_index:
+            raise ValueError(
+                "registration.use_dense_index=False selects the binary-"
+                "search correspondence lookup (StreamingOdometry's "
+                "use_dense=False path in the JAX package), which the port "
+                "does not have yet (ROADMAP slice 3a, item c); the port "
+                "registers through the dilated dense index only")
         sc = self.cfg.sensor
         self.calib = (calib_mod.from_xml(sc.calibration_path)
                       if sc.calibration_path
@@ -139,6 +146,15 @@ class SlamPipeline:
         self._landmarks_added = False
         self._ring_full = False
         self._dense_cov: Optional[float] = None
+        # INS-port message counters, as the JAX package keeps them; only
+        # live mode's datagram handler (not ported yet) updates them, so
+        # an offline run returns them as initialised, as there.
+        self.ins_health = {
+            "inspva_count": 0, "rawins_count": 0, "bestgps_count": 0,
+            "unknown_count": 0, "last_imu_status": None,
+            "last_gps_solution": None, "last_gps_status": None,
+            "last_diff_age": None,
+        }
         # Sensor position-packet (port 8308) side channel: GPS grounding
         # of the HDL hour clock + PPS health.
         self.gps_health = {
@@ -486,5 +502,6 @@ class SlamPipeline:
             "ring_full": self._ring_full,
             "dense_index_min_coverage": self._dense_cov,
             "timing": self.timers.summary(),
+            "ins_health": dict(self.ins_health),
             "gps_health": dict(self.gps_health),
         }
