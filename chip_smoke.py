@@ -1,8 +1,8 @@
 """Drive the PyTorch port's main paths once on one CUDA card: bulk
 odometry, device full SLAM with its end-of-stream finalize, the
-user-facing pipeline from pcap to trajectory, landmarks and tiled map,
-and the matrix-free PCG graph solvers that sessions above 2048 keyframes
-run.
+user-facing pipeline from pcap to trajectory, landmarks and tiled map
+(batched, and per frame: slam_run's default mode), and the matrix-free
+PCG graph solvers that sessions above 2048 keyframes run.
 
 Run on a machine with an NVIDIA H100, from the repository root or any
 other directory (the script puts its own directory first on sys.path):
@@ -64,22 +64,45 @@ code is non-zero:
                 pipeline frames/s as
                 bench.py::run_full_slam defines it; then one run that
                 synchronizes at each stage's end, for the stage seconds.
-  8. pcg      — solve_pcg at K = 16384 (16000 poses) and
+  8. per_frame — slam_run's default mode: the same pcap + INS log
+                through SlamPipeline(device="cuda").run_offline +
+                finalize() (512-packet batches; per frame the ROI's dense
+                index, 16 GN iterations on 16384 points, the map
+                integration; closure sweeps every 10 keyframes with the
+                graph solve and the map downdate) with bench.py's
+                full-SLAM config, against the JAX package's golden
+                (tests/fixtures/perframe_golden_seed3.npz): a warm run
+                whose registration-kernel inputs are recorded at every
+                shape the path gives them (a frame against the ROI,
+                closure verification's C candidates) and each kernel
+                held against its plain version on them (NE and the GN
+                step at the kernel phase's tolerances, the gathers
+                bitwise) and timed at a frame's shape; 3 measured runs,
+                each checked (frames and times,
+                keyframe times, closures mid-session and in all,
+                trajectory, landmark count, ATE), all 3 equal to the bit;
+                the registration kernels launched, the chain kernel not;
+                a checkpoint round trip; frames/s; then one run that
+                synchronizes at each stage's end, for the stage seconds
+                and the synchronizing operations by call site.
+  9. pcg      — solve_pcg at K = 16384 (16000 poses) and
                 solve_pcg_landmarks at K = 4096 alone, at the production
                 8 GN x 96 CG iterations, twice each, against the JAX
                 golden (tests/fixtures/pcg_golden.npz) and the JAX tests'
                 gates; time, launches, syncs and their call sites, peak
                 memory; the device finalize's proposal and solve at the
                 keyframe ring's cap of 16384.
-  9. long_drive — tests/test_fullslam.py's unbounded session (44 s at
+  10. long_drive — tests/test_fullslam.py's unbounded session (44 s at
                 3600 rpm, ~2640 keyframes in a 4096-row ring, every solve
                 on PCG) once through SlamPipeline on the card, every stage
                 synchronized, against the JAX golden
                 (tests/fixtures/long_drive_golden_seed3.npz); the chain
                 kernel must launch in the device finalize and in the
                 landmark solve.
-Then one JSON line with the kernel records (launches: one pipeline run;
-the chain kernel's, one long-drive run), and last the result line.
+Then one JSON line with the kernel records (launches: one pipeline run,
+the chain kernel's one long-drive run; per_frame_launches: one per_frame
+run; per_frame_max_abs_err: the largest |Δ| from the plain version on the
+per_frame path's own inputs), and last the result line.
 Imports nothing of JAX or of the JAX package, and checks that before the
 result line.
 """
@@ -192,6 +215,12 @@ CHAIN_RCP_OPS = 4
 # then per pivot column the reciprocal, the scaling of the pivot row and
 # the eliminating FMA (the pivot search runs beside the reciprocal).
 CHAIN_FACTOR_OPS = 13 + 6 * (CHAIN_RCP_OPS + 2)
+PERFRAME_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                               "perframe_golden_seed3.npz")
+PERFRAME_RUNS = 3
+# Closures the per-frame drives must accept in all (and at least one of
+# them mid-session, which runs the graph solve and the map downdate).
+PERFRAME_MIN_CLOSURES = {"full": 3, "small": 1, "small_search": 1}
 LONG_DRIVE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                  "long_drive_golden_seed3.npz")
 # The long drive's 2-D ATE against the golden's (0.776 m): with every sum
@@ -514,14 +543,15 @@ def _ne_diff(name: str, F: int, P: int, x, r, rel: bool = False) -> float:
     return d
 
 
-def _check_ne(F: int, P: int, args) -> dict:
+def _check_ne(F: int, P: int, args, **kw) -> dict:
     """NE-only mode against normal_equations_plain: |Δ| ≤ 1e-4·max|ref| +
     1e-3 on H and b (float32 sums in another order), 1e-4 relative on the
-    sums, n_hit exact, two launches bitwise equal."""
+    sums, n_hit exact, two launches bitwise equal.  `kw`: huber_delta,
+    max_dist."""
     from veloslam_tpu_torch.registration import normal_equations as ne
-    got = ne.fused_normal_equations(*args)
-    again = ne.fused_normal_equations(*args)
-    ref = ne.normal_equations_plain(*args)
+    got = ne.fused_normal_equations(*args, **kw)
+    again = ne.fused_normal_equations(*args, **kw)
+    ref = ne.normal_equations_plain(*args, **kw)
     torch.cuda.synchronize()
     if not all(_same_bits(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"NE kernel not bitwise repeatable at {F}x{P}")
@@ -534,23 +564,26 @@ def _check_ne(F: int, P: int, args) -> dict:
     return errs
 
 
-def _check_gn(F: int, P: int, args, damping: float = 1e-6) -> dict:
+def _check_gn(F: int, P: int, args, damping: float = 1e-6,
+              edge_slots: bool = True, **kw) -> dict:
     """gn_iteration's kernel against gn_iteration_plain: the ok and clamp
-    decisions exactly (and the edge slots' expected ones), n_hit exact,
+    decisions exactly (and, with `edge_slots`, the expected ones of
+    _ne_inputs' edge slots), n_hit exact,
     H, b and err at _check_ne's tolerances with NaNs counted equal, a
     rejected slot's pose unchanged bitwise, two calls bitwise equal.  The
     new pose is held within 1e-5 m and 1e-6 per quaternion component of
     the plain step taken from the kernel's own H, b and n_hit: both solve
     the same float32 6×6 system, with another Cholesky.  The fully plain
     pose also differs by H's sum order times the conditioning of H; its
-    offset is printed."""
+    offset is printed.  `kw`: huber_delta, max_dist."""
     from veloslam_tpu_torch.core import se3
     from veloslam_tpu_torch.registration import normal_equations as ne
     pts, q, t, mu, n, hit = args
     pose = se3.Pose(q, t)
-    got = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping)
-    again = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping)
-    ref = ne.gn_iteration_plain(pts, pose, mu, n, hit, damping=damping)
+    got = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping, **kw)
+    again = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping, **kw)
+    ref = ne.gn_iteration_plain(pts, pose, mu, n, hit, damping=damping,
+                                **kw)
     own = ne._gn_step(pose, got.H, got.b, got.n_hit, damping)
     torch.cuda.synchronize()
 
@@ -561,7 +594,7 @@ def _check_gn(F: int, P: int, args, damping: float = 1e-6) -> dict:
     if not torch.equal(got.step, ref.step):
         raise AssertionError(f"step decisions differ at {F}x{P}: "
                              f"{got.step.tolist()} vs {ref.step.tolist()}")
-    want = [0, 2, 0] if F >= 3 else [0]
+    want = ([0, 2, 0] if F >= 3 else [0]) if edge_slots else []
     if got.step[:len(want)].tolist() != want:
         raise AssertionError(f"edge slots at {F}x{P}: steps "
                              f"{got.step[:len(want)].tolist()}, want {want}")
@@ -1256,6 +1289,357 @@ def _check_pipeline(pipe, res, seq, gold, name, launches, fullslam_launches,
           f"limit {limit:.4f})", flush=True)
 
 
+def run_perframe(paths: dict, drive: dict, device, timers=None) -> tuple:
+    """One user run of slam_run's default mode: a fresh SlamPipeline,
+    run_offline (pcap read included) + finalize; returns (pipeline,
+    results, the closures accepted during the stream, wall s).  `timers`
+    replaces the pipeline's stage timers."""
+    from veloslam_tpu_torch.config import SlamConfig
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    pipe = SlamPipeline(SlamConfig.from_dict(drive["slam"]), device=device)
+    if timers is not None:
+        pipe.timers = timers
+    sync()
+    t0 = time.perf_counter()
+    pipe.run_offline(paths["pcap"], paths["ins"])
+    mid = list(pipe.closures)
+    res = pipe.finalize()
+    sync()
+    return pipe, res, mid, time.perf_counter() - t0
+
+
+def map_tiles(pipe) -> tuple:
+    """(tile keys (T, 2) int64, per-tile voxel counts (T,) float64) in
+    tile order, resident and spilled (the golden generators' reading)."""
+    keys = sorted(set(pipe.map._patches) | set(pipe.map._spilled))
+    counts = [float(pipe.map._materialize(k, create=False).count.sum())
+              for k in keys]
+    return (np.asarray(keys, np.int64).reshape(-1, 2),
+            np.asarray(counts, np.float64))
+
+
+def check_perframe(pipe, res, mid, seq, gold, name: str) -> str:
+    """One per-frame run against the JAX golden (perframe_golden_seed3):
+    frames and their times, keyframe times and the landmark count equal;
+    the closures accepted during the stream (at least one) and in all
+    equal as sets, at least PERFRAME_MIN_CLOSURES[name] in all;
+    trajectory within 5 cm in x, y and Z_LIMIT_M in z; 2-D ATE at most
+    the golden's + 0.02 m.  Raises on a failure; returns a summary."""
+    from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
+
+    def g(k):
+        return gold[f"{name}_{k}"]
+
+    n = res["n_frames"]
+    fails = []
+    if n != int(g("n_frames")) or not np.array_equal(res["times_us"],
+                                                     g("times_us")):
+        raise AssertionError(f"per_frame {name}: {n} frames / times differ "
+                             f"from the golden's {int(g('n_frames'))}")
+    if not np.array_equal(res["keyframe_times_us"], g("keyframe_times_us")):
+        fails.append(f"keyframe times ({res['n_keyframes']} keyframes, "
+                     f"golden {int(g('n_keyframes'))})")
+    want_mid = sorted(map(tuple, g("closures_mid").tolist()))
+    want_all = sorted(map(tuple, g("closures").tolist()))
+    if sorted(mid) != want_mid or not mid:
+        fails.append(f"mid-session closures {sorted(mid)}, golden "
+                     f"{want_mid}")
+    if sorted(pipe.closures) != want_all or \
+            len(pipe.closures) < PERFRAME_MIN_CLOSURES[name]:
+        fails.append(f"closures {sorted(pipe.closures)}, golden {want_all}")
+    if res["n_landmarks"] != int(g("n_landmarks")):
+        fails.append(f"{res['n_landmarks']} landmarks, golden "
+                     f"{int(g('n_landmarks'))}")
+    pos = res["positions"]
+    off = off_z = float("inf")
+    if np.isfinite(pos).all() and np.isfinite(res["quaternions"]).all():
+        off = float(np.linalg.norm(pos[:, :2] - g("positions")[:, :2],
+                                   axis=1).max())
+        off_z = float(np.abs(pos[:, 2] - g("positions")[:, 2]).max())
+    if not (off <= 0.05 and off_z <= Z_LIMIT_M):
+        fails.append(f"trajectory {off} m from the golden in x, y, {off_z} "
+                     f"m in z")
+    truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
+                                  seq["ins_pos"])
+    rmse = ate(pos[:, :2], truth[:, :2], align=False)["rmse"]
+    limit = float(g("ate")) + 0.02
+    if not rmse <= limit:
+        fails.append(f"ATE {rmse} m > {limit} m")
+    if fails:
+        raise AssertionError(f"per_frame {name}: {'; '.join(fails)}")
+    tiles, counts = map_tiles(pipe)
+    same_tiles = np.array_equal(tiles, g("map_tiles"))
+    rel = (float(np.abs(counts / g("map_tile_counts") - 1).max())
+           if same_tiles else float("nan"))
+    reg = np.asarray([f.registered for f in pipe.trajectory])
+    which = "the golden tiles" if same_tiles else "other tiles than golden"
+    return (f"{n} frames ({int(reg.sum())} registered, golden "
+            f"{int(g('registered').sum())}), {res['n_keyframes']} "
+            f"keyframes, closures {len(mid)} mid-session + "
+            f"{len(pipe.closures) - len(mid)} at finalize, equal to the JAX "
+            f"golden's as sets; trajectory max {off:.2e} m from it in x, y, "
+            f"{off_z:.2e} m in z; {res['n_landmarks']} landmarks (golden "
+            f"{int(g('n_landmarks'))}), {res['n_landmark_obs']} "
+            f"observations (golden {int(g('n_landmark_obs'))}); map "
+            f"{len(tiles)} tiles ({which}), per-tile counts at most "
+            f"{rel:.2e} from the golden's; 2-D ATE "
+            f"{rmse:.4f} m (golden {float(g('ate')):.4f}, limit "
+            f"{limit:.4f})")
+
+
+def _perframe_outputs(pipe, res) -> dict:
+    """A run's outputs for the bit-for-bit comparison of repeats."""
+    g = pipe.graph
+    tiles, counts = map_tiles(pipe)
+    return {**{k: res[k] for k in ("times_us", "positions", "quaternions",
+                                   "keyframe_positions", "keyframe_times_us",
+                                   "n_landmarks", "n_landmark_obs")},
+            "closures": np.asarray(pipe.closures),
+            "landmarks": g.l_pos[:g.n_landmarks],
+            "obs_kept": g.o_ok[:g.n_obs], "map_tiles": tiles,
+            "map_tile_counts": counts}
+
+
+def check_checkpoint(pipe, dirname: str) -> str:
+    """save_checkpoint, then a fresh pipeline's load_checkpoint: equal
+    frame meta (times, car poses, point counts, pcap sources) and frame
+    payloads, INS track, graph and map tiles.  Returns a summary."""
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    t0 = time.perf_counter()
+    pipe.save_checkpoint(dirname)
+    saved = time.perf_counter() - t0
+    other = SlamPipeline(pipe.cfg, device=pipe.device)
+    other.load_checkpoint(dirname)
+    (ta, va), (tb, vb) = (pipe.frames.all_frame_meta(),
+                          other.frames.all_frame_meta())
+    diff = []
+    if not (np.array_equal(ta, tb) and va.keys() == vb.keys() and all(
+            np.array_equal(va[k], vb[k]) for k in va)):
+        diff.append("frame meta")
+    if other.frames._sources != pipe.frames._sources:
+        diff.append("frame sources")
+    for t_us in (int(ta[0]), int(ta[len(ta) // 2]), int(ta[-1])):
+        a, b = pipe.frames.get_frame_at(t_us), other.frames.get_frame_at(t_us)
+        if a.keys() != b.keys() or not all(np.array_equal(a[k], b[k])
+                                           for k in a):
+            diff.append(f"frame {t_us}")
+    (qa, tra), (qb, trb) = (pipe.track.timeline.arrays(),
+                            other.track.timeline.arrays())
+    if not (np.array_equal(qa, qb) and all(np.array_equal(tra[k], trb[k])
+                                           for k in tra)):
+        diff.append("INS track")
+    ga, gb = pipe.graph, other.graph
+    for f in ("q", "t", "e_i", "e_j", "e_q", "e_t", "e_info", "l_pos",
+              "o_i", "o_l", "o_z", "o_ok"):
+        if not np.array_equal(getattr(ga, f), getattr(gb, f)):
+            diff.append(f"graph {f}")
+    keys = sorted(set(pipe.map._patches) | set(pipe.map._spilled))
+    if keys != sorted(set(other.map._patches) | set(other.map._spilled)):
+        diff.append("map tiles")
+    else:
+        for k in keys:
+            pa = pipe.map._materialize(k, create=False)
+            pb = other.map._materialize(k, create=False)
+            if not all(np.array_equal(getattr(pa, f), getattr(pb, f))
+                       for f in ("coords", "count", "s1", "s2")):
+                diff.append(f"map tile {k}")
+    if diff:
+        raise AssertionError(f"checkpoint round trip differs in {diff}")
+    return (f"checkpoint round trip: {len(ta)} frames' meta and payloads, "
+            f"{len(qa)} INS poses, {ga.n_poses} keyframes / {ga.n_edges} "
+            f"edges / {ga.n_landmarks} landmarks, {len(keys)} map tiles "
+            f"equal after load_checkpoint (saved in {saved:.2f} s)")
+
+
+@contextlib.contextmanager
+def capturing_kernel_inputs(seen: dict):
+    """While in the block, record the inputs (cloned) and keyword
+    arguments of the first call of each registration kernel's wrapper at
+    each distinct shape and keyword set, as registration/gicp.py and
+    registration/voxel.py call them: `seen[(name, shapes, kw)] = (args,
+    kw)`."""
+    from veloslam_tpu_torch.core import se3
+    from veloslam_tpu_torch.registration import gicp
+    from veloslam_tpu_torch.registration import voxel as vx
+
+    def clone(a):
+        if isinstance(a, se3.Pose):
+            return se3.Pose(a.q.clone(), a.t.clone())
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            key = (name, tuple(tuple(getattr(a, "shape", ())) for a in args
+                               if not isinstance(a, se3.Pose)),
+                   tuple(sorted(kw.items())))
+            if key not in seen:
+                seen[key] = (tuple(clone(a) for a in args), dict(kw))
+            return fn(*args, **kw)
+        return call
+
+    hooks = ((gicp, "gn_iteration"), (gicp, "fused_normal_equations"),
+             (gicp, "gather_rows8"), (vx, "gather_i32"))
+    saved = [getattr(mod, attr) for mod, attr in hooks]
+    for (mod, attr), fn in zip(hooks, saved):
+        setattr(mod, attr, recorder(attr, fn))
+    try:
+        yield seen
+    finally:
+        for (mod, attr), fn in zip(hooks, saved):
+            setattr(mod, attr, fn)
+
+
+def check_captured(seen: dict, smi: str) -> dict:
+    """Each registration kernel against its plain version on the inputs a
+    run gave it (capturing_kernel_inputs), at every shape of that run:
+    the GN step and NE-only mode at _check_gn's and _check_ne's
+    tolerances (no edge slots on real inputs), the gathers bitwise.  At
+    the first shape of each the kernel's time beside its plain version's:
+    a frame's registration against the ROI for the GN step and the
+    gathers, closure verification for NE-only (its only caller).  Returns the largest |Δ| of
+    each kernel (H and b for the normal equations)."""
+    from veloslam_tpu_torch.registration import gather as ga
+    from veloslam_tpu_torch.registration import normal_equations as ne
+    worst = dict.fromkeys(REG_KERNELS, 0.0)   # the gathers: bitwise
+    timed = set()
+    for (name, _, _), (args, kw) in seen.items():
+        if name in ("gn_iteration", "fused_normal_equations"):
+            F, P = args[0].shape[:2]
+            if name == "gn_iteration":
+                pts, pose, mu, n, hit = args
+                flat = (pts, pose.q, pose.t, mu, n, hit)
+                errs = _check_gn(F, P, flat, edge_slots=False, **kw)
+                kernel, plain = ne.gn_iteration, ne.gn_iteration_plain
+            else:
+                errs = _check_ne(F, P, args, **kw)
+                kernel = ne.fused_normal_equations
+                plain = ne.normal_equations_plain
+            H, b = (errs["gn_H"], errs["gn_b"]) if "gn_H" in errs else (
+                errs["H"], errs["b"])
+            worst["fused_normal_equations"] = max(
+                worst["fused_normal_equations"], H, b)
+            line = (f"F={F} P={P} {kw}: within tolerance, bitwise "
+                    f"repeatable; " + " ".join(f"{k}={v:.3g}"
+                                               for k, v in errs.items()))
+        else:
+            table, idx = args
+            kernel, plain = getattr(ga, name), getattr(ga, f"{name}_plain")
+            got, ref = kernel(table, idx), plain(table, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"per_frame {name} at table "
+                                     f"{tuple(table.shape)}, M "
+                                     f"{idx.numel()}: not bitwise equal to "
+                                     "the plain version")
+            line = (f"table {tuple(table.shape)} M {idx.numel()} "
+                    f"({torch.unique(idx).numel()} distinct): bitwise equal")
+        if name not in timed:
+            timed.add(name)
+            ms = [_events_ms(lambda f=f: f(*args, **kw), TIMED_RUNS, 10)
+                  for f in (kernel, plain)]
+            line += (f"; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms per "
+                     f"call (median of {TIMED_RUNS} runs of 10 calls); {smi}")
+        print(f"[per_frame] {name} on the warm run's own inputs at {line}",
+              flush=True)
+    missing = [k for k in ("gn_iteration", "fused_normal_equations",
+                           "gather_i32", "gather_rows8")
+               if not any(key[0] == k for key in seen)]
+    if missing:
+        raise AssertionError(f"per_frame: no call of {missing} captured")
+    return worst
+
+
+def phase_per_frame(device, smi: str, name: str = "full") -> dict:
+    """slam_run's default mode, the per-frame pipeline, on bench.py's
+    full-SLAM drive (or, for a CPU rehearsal, `name="small"`) against the
+    JAX golden (perframe_golden_seed3.npz): a warm run, whose kernel
+    inputs are captured and each kernel held against its plain version
+    on them (check_captured), PERFRAME_RUNS measured runs, each checked
+    and all equal to the bit, the checkpoint round trip, then one run
+    synchronized at each stage's end that counts the synchronizing
+    operations by call site.  Returns (the kernel launches of one
+    measured run, check_captured's largest |Δ| per kernel)."""
+    import tempfile
+    gold = np.load(PERFRAME_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["drives"]}[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, seq = write_pipeline_drive(drive, cfg["model"], tmp)
+        # The warm run (the card's libraries) also records each
+        # registration kernel's inputs at every shape the path gives it.
+        with capturing_kernel_inputs({}) as seen:
+            run_perframe(paths, drive, device)
+        errs = dict.fromkeys(REG_KERNELS)       # not compared on the CPU
+        if device.type == "cuda":
+            errs = check_captured(seen, smi)
+        print(f"[per_frame] {len(seen)} kernel shapes captured: "
+              f"{sorted(seen)}", flush=True)
+        del seen
+        walls, outs = [], []
+        for _ in range(PERFRAME_RUNS):
+            _reset_launches()
+            pipe, res, mid, wall = run_perframe(paths, drive, device)
+            launches = _launches()
+            summary = check_perframe(pipe, res, mid, seq, gold, name)
+            if device.type == "cuda" and not (
+                    all(launches[k] for k in REG_KERNELS)
+                    and launches["chain_factor"] == launches["chain_solve"]
+                    == 0):
+                raise AssertionError(f"per_frame: launches {launches}: "
+                                     f"want each of {REG_KERNELS} > 0 and "
+                                     f"no chain launch")
+            walls.append(wall)
+            outs.append(_perframe_outputs(pipe, res))
+        _check_repeats("per_frame", outs)
+        ckpt = check_checkpoint(pipe, os.path.join(tmp, "checkpoint"))
+        timers = SyncCountingStages()
+        spipe, sres, smid, wall_sync = run_perframe(paths, drive, device,
+                                                    timers)
+        check_perframe(spipe, sres, smid, seq, gold, name)
+        busy = "not measured (no card)"
+        if device.type == "cuda":
+            # The card's busy time in one more run: every kernel and copy
+            # torch.profiler sees, over the measured runs' median wall.
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run_perframe(paths, drive, device)
+            busy_s = _kernel_us(prof) * 1e-6
+            busy = (f"{busy_s:.3f} s busy (torch.profiler, one more run) "
+                    f"of the {np.median(walls):.3f} s median wall: "
+                    f"{1 - busy_s / np.median(walls):.1%} idle")
+    wall = float(np.median(walls))
+    n = res["n_frames"]
+    print(f"[per_frame] {summary}; {smi}", flush=True)
+    print(f"[per_frame] the {PERFRAME_RUNS} runs equal to the bit "
+          f"(trajectory, keyframes, closures, landmarks, per-tile map "
+          f"counts); {ckpt}; {smi}", flush=True)
+    print(f"[per_frame] {n} frames in {wall:.3f} s: {n / wall:.2f} frames/s "
+          f"(run_offline + finalize, pcap read included; median of "
+          f"{PERFRAME_RUNS} runs {[round(w, 3) for w in walls]}); launches "
+          f"per run {launches}; the card {busy}; {smi}", flush=True)
+    stages = {k: round(v["total_s"], 4) for k, v in sres["timing"].items()}
+    sites = {}
+    for per_stage in timers.sites.values():
+        for site, c in per_stage.items():
+            sites[site] = sites.get(site, 0) + c
+    top = sorted(sites.items(), key=lambda kv: -kv[1])
+    stage_launches = {k: {kk: vv for kk, vv in v.items() if vv}
+                      for k, v in timers.launches.items()}
+    print(f"[per_frame] stage seconds, synchronized at each stage's end "
+          f"({wall_sync:.3f} s wall; nested stages: 'frame' holds "
+          f"'register', 'map_update' and the keyframes' sweeps): {stages}; "
+          f"{smi}", flush=True)
+    print(f"[per_frame] synchronizing operations: "
+          f"{sum(sites.values())} in the run, "
+          f"{sum(sites.values()) / n:.1f} per frame; per stage "
+          f"{timers.syncs}; per frame by call site "
+          f"{ {k: round(v / n, 2) for k, v in top} }; launches per stage "
+          f"{stage_launches}; {smi}", flush=True)
+    return launches, errs
+
+
 def chain_inputs(K: int, device, seed: int = 11):
     """The chain kernel's inputs as the solver makes them: D (the 1e6
     gauge on pose 0, 1e-4 damping, the 2% floor) and B of a drifted chain
@@ -1381,17 +1765,19 @@ def _watching_syncs(sites: dict):
     """Adds to `sites` {"file:line": count} of the operations run inside
     that synchronized the host with the card (torch.cuda's sync debug mode
     warns at the Python line that called each; without a card, a CPU
-    rehearsal, nothing is watched)."""
+    rehearsal, nothing is watched).  Nests: an inner watch takes the
+    operations run inside it, and the outer one watches on after it."""
     cuda = torch.cuda.is_available()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         if cuda:
+            before = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("warn")
         try:
             yield sites
         finally:
             if cuda:
-                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.set_sync_debug_mode(before)
     for w in caught:
         if "synchroniz" in str(w.message):
             key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
@@ -1759,6 +2145,7 @@ def main() -> int:
     phase_bulk(device, smi, cfg["odometry"])
     fullslam_launches = phase_fullslam(device, smi)
     launches = phase_pipeline(device, smi, fullslam_launches)
+    perframe_launches, perframe_errs = phase_per_frame(device, smi)
     phase_pcg(device, smi)
     long_launches = phase_long_drive(device, smi)
     loaded = sorted(m for m in sys.modules
@@ -1770,20 +2157,29 @@ def main() -> int:
         {"name": "fused_normal_equations", "route": "cuda",
          "source": src + "normal_equations.cu",
          "replaces": "veloslam_tpu/registration/pallas_kernels.py:84",
-         "launches": launches["fused_normal_equations"], **record},
+         "launches": launches["fused_normal_equations"],
+         "per_frame_launches": perframe_launches["fused_normal_equations"],
+         "per_frame_max_abs_err": perframe_errs["fused_normal_equations"],
+         **record},
         {"name": "gather_i32", "route": "cuda", "source": src + "gather.cu",
          "replaces": "scripts/bench_pallas_gather.py:54",
          "launches": launches["gather_i32"],
+         "per_frame_launches": perframe_launches["gather_i32"],
+         "per_frame_max_abs_err": perframe_errs["gather_i32"],
          **gather_records["gather_i32"]},
         {"name": "gather_rows8", "route": "cuda", "source": src + "gather.cu",
          "replaces": "scripts/bench_pallas_gather.py:88",
          "launches": launches["gather_rows8"],
+         "per_frame_launches": perframe_launches["gather_rows8"],
+         "per_frame_max_abs_err": perframe_errs["gather_rows8"],
          **gather_records["gather_rows8"]},
         {"name": "chain", "route": "cuda", "source": src + "chain.cu",
          "replaces": "veloslam_tpu/graph/pcg.py:105-152 (lax.scan; no "
                      "Pallas original)",
          "launches": long_launches["chain_factor"]
-         + long_launches["chain_solve"], **chain_record},
+         + long_launches["chain_solve"],
+         "per_frame_launches": perframe_launches["chain_factor"]
+         + perframe_launches["chain_solve"], **chain_record},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the hand-written normal-equations, gather and
 chain kernels against their plain versions, the wrappers' input checks,
-the odometry slice and the graph solves (dense and PCG) on the card
+the odometry slice, frame assembly, the dense nearest-mean lookup, the
+per-frame pipeline and the graph solves (dense and PCG) on the card
 against the same on the CPU.
 Marked `cuda`; each test skips where
 torch.cuda.is_available() is false.  On a machine with a card:
@@ -498,3 +499,105 @@ def test_solve_pcg_on_card_matches_cpu(card):
                        for k, v in f.items()})
     again, _ = pcg.solve_pcg(g, max_poses=1024, iterations=2, cg_iters=32)
     assert np.array_equal(again.t[:600].cpu().numpy(), out["cuda"])
+
+
+def test_assemble_frames_on_card_equals_cpu(card):
+    """Frame assembly over three batches with the carry, the same decoded
+    and compensated batches (made on the CPU) assembled on each device:
+    the card's frames, counts, starts and carry equal the CPU's to the
+    bit (the scatter writes each cell once, its last write)."""
+    from veloslam_tpu_torch.decode import frames as fr
+    from veloslam_tpu_torch.decode.decode import compensate, decode_packets
+    seq = sim.generate_sequence(duration_s=0.3, model="hdl32", seed=5,
+                                world=sim.World.demo(6))
+    track = sim.truth_track(seq, drift_rate=0.3)
+    calib = DeviceCalib.from_host(cal.hdl32(), device="cpu")
+    batches, open_abs = [], None
+    carry = fr.AssemblyCarry.init(32, device="cpu")
+    for b in range(3):
+        pk = seq["packets"][b * 160:(b + 1) * 160]
+        times = seq["pkt_times_us"][b * 160:(b + 1) * 160]
+        anchor = int(times[0])
+        w = track.window(anchor, int(times[-1]), anchor_us=anchor)
+        rel = torch.as_tensor(((times - anchor) * 1e-6).astype(np.float32))
+        d = decode_packets(torch.as_tensor(pk), calib, model="hdl32")
+        xyz, _ = compensate(d, rel, *(torch.as_tensor(w[k])
+                                      for k in ("rel_s", "q", "t", "v")))
+        cs = torch.full((), 0.0 if open_abs is None
+                        else (open_abs - anchor) * 1e-6)
+        batches.append((d, xyz, rel, cs))
+        *_, carry, open_start = fr.assemble_frames(
+            d, xyz, rel, carry, cs, model="hdl32", n_beams=32)
+        open_abs = anchor + float(open_start) * 1e6
+    outs = {}
+    for dev in ("cpu", card):
+        carry = fr.AssemblyCarry.init(32, device=dev)
+        got = []
+        for d, xyz, rel, cs in batches:
+            d = type(d)(*(x.to(dev) for x in d))
+            fb, n_done, starts, carry, open_start = fr.assemble_frames(
+                d, xyz.to(dev), rel.to(dev), carry, cs.to(dev),
+                model="hdl32", n_beams=32)
+            got.append([x.cpu() for x in (*fb, n_done, starts, *carry,
+                                          open_start)])
+        outs[str(dev)] = got
+    assert sum(int(b[6]) for b in outs["cpu"]) >= 2      # n_done
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_lookup_nearest_dense_on_card_equals_cpu(card):
+    """The dense nearest-mean lookup on the card (its 7·P table reads one
+    gather_i32 launch) chooses the CPU's rows, exactly."""
+    from veloslam_tpu_torch.registration import gicp
+    from veloslam_tpu_torch.registration import voxel as vx
+    rng = np.random.default_rng(3)
+    centers = rng.uniform(-30, 30, (200, 3))
+    pts = (centers[rng.integers(0, 200, 30000)]
+           + rng.normal(0, 0.4, (30000, 3))).astype(np.float32)
+    q = (pts[:16384] + rng.normal(0, 0.3, (16384, 3))).astype(np.float32)
+    m = rng.random(16384) < 0.95
+    rows = {}
+    for dev in ("cpu", card):
+        g = vx.build_grid(torch.as_tensor(pts, device=dev),
+                          torch.ones(30000, dtype=torch.bool, device=dev),
+                          torch.zeros(3, device=dev),
+                          torch.tensor(1.0, device=dev), capacity=16384)
+        usable = gicp.plane_grid_from(g).usable
+        dense = vx.build_dense_index(g)
+        before = ga.LAUNCHES["gather_i32"]
+        rows[str(dev)] = [vx.lookup_nearest_dense(
+            g, dense, torch.as_tensor(q, device=dev),
+            torch.as_tensor(m, device=dev), usable,
+            approx_centers=a).cpu() for a in (False, True)]
+        assert ga.LAUNCHES["gather_i32"] - before == (2 if dev == card
+                                                      else 0)
+    for a, b in zip(rows["cpu"], rows[str(card)]):
+        assert torch.equal(a, b)
+    assert (rows["cpu"][0] >= 0).sum() > 3000
+
+
+def test_small_per_frame_pipeline_on_card_matches_jax_golden(card):
+    """slam_run's default mode on the card: the small drive of
+    perframe_golden_seed3.npz through SlamPipeline(device=card).
+    run_offline + finalize, with chip_smoke's gates against the JAX
+    golden; the three registration kernels launched, the chain kernel
+    not."""
+    import json
+    import os
+    import tempfile
+
+    import chip_smoke as cs
+    gold = np.load(cs.PERFRAME_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["drives"]}["small"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, seq = cs.write_pipeline_drive(drive, cfg["model"], tmp)
+        cs._reset_launches()
+        pipe, res, mid, _ = cs.run_perframe(paths, drive, card)
+        launches = cs._launches()
+        cs.check_perframe(pipe, res, mid, seq, gold, "small")
+        assert os.path.isdir(tmp)
+    assert all(launches[k] > 0 for k in cs.REG_KERNELS), launches
+    assert launches["chain_factor"] == launches["chain_solve"] == 0

@@ -148,6 +148,42 @@ def test_register_single_scan_is_batch_of_one(scene):
     assert int(one.n_matched) == int(batch.n_matched[0])
 
 
+@pytest.mark.parametrize("search", [False, True])
+def test_register_against_one_target_matches_jax(scene, search):
+    """The per-frame pipeline's registration: one scan against one
+    target, the exact nearest mean of seven cells through a DenseIndex
+    (JAX: register(dense=DenseIndex, dense_approx_centers=False)), or
+    without an index the binary-search lookup, the port's target stacked
+    at F = 1.  16 iterations re-associating every 8; poses within 1e-4."""
+    grid, target, _, src, mask = scene
+    init = (np.array([1.0, 0, 0, 0], np.float32),
+            np.array([0.05, -0.1, 0.0], np.float32))
+    jdense = None if search else jvx.build_dense_index(grid)
+    want = jgicp.register(
+        jnp.asarray(src[0]), jnp.asarray(mask[0]), target,
+        jse3.Pose(*(jnp.asarray(a) for a in init)), iterations=16,
+        dense=jdense, reassociate_every=8, dense_approx_centers=False)
+    ttarget = gicp.plane_grid_from(vx.VoxelGrid(*(t(x) for x in grid)))
+    ttarget = gicp.make_plane_grid(ttarget.grid, ttarget.normal,
+                                   t(target.usable))
+    if search:
+        ttarget = gicp.PlaneGrid(
+            grid=vx.VoxelGrid(*(x[None] for x in ttarget.grid)),
+            normal=ttarget.normal[None], usable=ttarget.usable[None],
+            rows=ttarget.rows[None])
+        tdense = None
+    else:
+        tdense = vx.build_dense_index(vx.VoxelGrid(*(t(x) for x in grid)))
+        assert isinstance(tdense, vx.DenseIndex)
+    got = gicp.register(t(src[0]), t(mask[0]), ttarget,
+                        se3.Pose(*(t(a) for a in init)), tdense,
+                        iterations=16, reassociate_every=8)
+    np.testing.assert_allclose(n(got.pose.q), n(want.pose.q), atol=1e-4)
+    np.testing.assert_allclose(n(got.pose.t), n(want.pose.t), atol=1e-4)
+    assert abs(int(got.n_matched) - int(want.n_matched)) <= 10
+    np.testing.assert_allclose(n(got.pose.t), OFFSETS[0][:3], atol=0.05)
+
+
 # --- per-scan targets (loop-closure verification) ----------------------------
 
 VERIFY_VOXEL = 1.0

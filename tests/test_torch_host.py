@@ -3,11 +3,12 @@ originals, and the port imports no jax.
 
 The port carries its own numpy copies of the simulator and its pcap / INS
 writers, the packet encoders and position-packet parsers, the pcap
-readers, calibration tables and the XML loader, PoseTrack, geodesy, the
-hour-stamp resolution, the numpy pose helpers, the trajectory metrics
-and the SlamConfig tree, because the originals' package __init__s import
-jax, which the card's machine does not have.  These tests hold the copies
-byte- and value-equal."""
+readers (bulk and per record), calibration tables and the XML loader,
+Timeline and PoseTrack (queries and npz files), geodesy, the hour-stamp
+resolution, the numpy pose helpers, the trajectory metrics and the
+SlamConfig tree, because the originals' package __init__s import jax,
+which the card's machine does not have.  These tests hold the copies
+byte- and value-equal (the FrameStore copy: tests/test_torch_framestore.py)."""
 
 import json
 import os
@@ -350,3 +351,77 @@ def test_stage_timers_sync_at_stage_end():
     assert calls == [1, 1, 1] and s["a"]["count"] == 3
     assert set(s["a"]) == {"total_s", "count", "mean_ms"}
     assert "a" in timers.report()
+
+
+def test_timeline_queries_equal():
+    """nearest / bracket / range_between on both Timelines, scalar and
+    batched queries, the ends and ties included."""
+    from veloslam_tpu.core.timeline import Timeline as JTimeline
+
+    from veloslam_tpu_torch.core.timeline import Timeline
+    rng = np.random.default_rng(5)
+    times = np.unique(rng.integers(0, 10_000, 60))
+    ours, ref = Timeline(("v",)), JTimeline(("v",))
+    for tl in (ours, ref):
+        for t_us in times[::-1]:             # out of order: a re-sort
+            tl.add(int(t_us), v=np.float64(t_us) * 0.5)
+    q = np.concatenate([rng.integers(-100, 10_100, 50), times[:5],
+                        (times[:-1] + times[1:]) // 2])
+    np.testing.assert_array_equal(ours.nearest(q), ref.nearest(q))
+    assert ours.nearest(int(q[0])) == ref.nearest(int(q[0]))
+    for a, b in zip(ours.bracket(q), ref.bracket(q)):
+        np.testing.assert_array_equal(a, b)
+    for t0, t1 in ((0, 10_000), (int(times[3]), int(times[9])), (50, 40)):
+        assert ours.range_between(t0, t1) == ref.range_between(t0, t1)
+
+
+def test_timeline_and_pose_track_files_interchange(tmp_path):
+    """Timeline / PoseTrack npz files: the port writes the JAX package's
+    bytes, and each package loads the other's."""
+    from veloslam_tpu.core.timeline import Timeline as JTimeline
+    from veloslam_tpu_torch.core.timeline import Timeline
+    ours, ref = Timeline(("a", "b")), JTimeline(("a", "b"))
+    for tl in (ours, ref):
+        for k in range(5):
+            tl.add(100 * k, a=np.arange(3) * k, b=float(k))
+    ours.save(str(tmp_path / "o.npz"))
+    ref.save(str(tmp_path / "r.npz"))
+    assert (tmp_path / "o.npz").read_bytes() == \
+        (tmp_path / "r.npz").read_bytes()
+    for cls, path in ((Timeline, "r.npz"), (JTimeline, "o.npz")):
+        back = cls.load(str(tmp_path / path))
+        ta, va = back.arrays()
+        tb, vb = ref.arrays()
+        np.testing.assert_array_equal(ta, tb)
+        for k in vb:
+            np.testing.assert_array_equal(va[k], vb[k])
+    track, jtrack = PoseTrack(), JPoseTrack()
+    for tr in (track, jtrack):
+        for k in range(4):
+            tr.add(1000 * k, q=[1, 0, 0, 0], t=[k, 2.0 * k, 0], v=[1, 0, 0])
+    track.save(str(tmp_path / "pt.npz"))
+    back = JPoseTrack.load(str(tmp_path / "pt.npz"))
+    mine = PoseTrack.load(str(tmp_path / "pt.npz"))
+    for a, b in ((back, jtrack), (mine, jtrack)):
+        wa = a.window(0, 3000, anchor_us=0)
+        wb = b.window(0, 3000, anchor_us=0)
+        for k in wb:
+            np.testing.assert_array_equal(wa[k], wb[k])
+
+
+def test_pcap_reader_records_equal(seqs, tmp_path):
+    """PcapReader yields the JAX reader's (payload, time, offset) records,
+    from the start and after a seek to a record offset."""
+    from veloslam_tpu.io import pcap as jpcap
+    seq, _ = seqs
+    path = sim.write_sequence(seq, str(tmp_path), name="d")["pcap"]
+    _, _, offs = pcap.read_lidar_packets(path)
+    for start in (None, int(offs[17])):
+        with pcap.PcapReader(path) as a, jpcap.PcapReader(path) as b:
+            if start is not None:
+                a.seek(start)
+                b.seek(start)
+            got, want = list(a), list(b)
+            assert a.tell() == b.tell()
+        assert len(got) == len(want) > 10
+        assert got == want

@@ -13,10 +13,11 @@
   another order); map patches equal and the map's total count within
   0.1%.
 * The graph crop buckets against SlamPipeline._crop_graph.
-* The CLI (`slam_run --batched --simulate 2 --device cpu`, and
-  `--fast`) writes the JAX app's files; without a mode it names the
-  per-frame path as not ported; SlamPipeline() without a card and
-  without device="cpu" raises.
+* The CLI (`slam_run --batched --simulate 2 --device cpu`, `--fast`,
+  and the default per-frame mode with `--checkpoint-dir`) writes the JAX
+  app's files; it names the part of the per-frame mode not ported yet
+  (`--bev`); SlamPipeline() without a card and without device="cpu"
+  raises; run_offline_batched refuses use_dense_index=False.
 """
 
 import json
@@ -107,16 +108,24 @@ def test_results_have_the_jax_keys_and_ins_health(small):
     assert pipe.results()["ins_health"] is not pipe.ins_health
 
 
-def test_use_dense_index_false_raises():
-    """registration.use_dense_index=False asks for the binary-search
-    correspondence lookup, which the port does not have: the pipeline
-    refuses it instead of running the dense index."""
+def test_use_dense_index_false_raises(tmp_path):
+    """registration.use_dense_index=False asks the batched path for the
+    binary-search correspondence lookup (StreamingOdometry's use_dense=
+    False), which the port does not have: run_offline_batched refuses it
+    instead of running the dense index.  The per-frame path serves it
+    (tests/test_torch_perframe.py, drive "small_search")."""
     import dataclasses
+
+    from veloslam_tpu_torch.io import simulate as sim
     cfg = SlamConfig()
     cfg = dataclasses.replace(cfg, registration=dataclasses.replace(
         cfg.registration, use_dense_index=False))
+    pipe = SlamPipeline(cfg, device="cpu")
+    seq = sim.generate_sequence(duration_s=0.2, model="hdl32", seed=2,
+                                world=sim.World.demo(2))
+    paths = sim.write_sequence(seq, str(tmp_path), name="d")
     with pytest.raises(ValueError, match="binary-search"):
-        SlamPipeline(cfg, device="cpu")
+        pipe.run_offline_batched(paths["pcap"], paths["ins"])
 
 
 def test_golden_config_is_bench_config():
@@ -179,10 +188,55 @@ def test_slam_run_writes_outputs(tmp_path, mode, args):
 
 
 def test_slam_run_names_the_per_frame_path_as_not_ported(capsys):
+    """The per-frame mode is ported; its BEV artifact is not: the CLI's
+    help says so, and it does not offer --bev."""
     from veloslam_tpu_torch.apps import slam_run
     with pytest.raises(SystemExit):
-        slam_run.main(["--simulate", "1", "--device", "cpu"])
-    assert "per-frame pipeline" in capsys.readouterr().err
+        slam_run.main(["--help"])
+    text = " ".join(capsys.readouterr().out.split())
+    assert "(default) the per-frame pipeline" in text
+    assert "`--bev` (the BEV viewer artifact) is not ported yet" in text
+    with pytest.raises(SystemExit):
+        slam_run.main(["--simulate", "1", "--device", "cpu", "--bev"])
+    assert "unrecognized arguments: --bev" in capsys.readouterr().err
+
+
+def test_slam_run_default_mode_writes_outputs_and_checkpoint(tmp_path):
+    """No mode flag: the per-frame pipeline (run_offline, as the JAX
+    app's default) writes trajectory.txt and metrics.json with the ATE,
+    and --checkpoint-dir a checkpoint a fresh pipeline loads.  The JAX
+    app runs the same simulated drive: the same frames (times exactly)
+    and keyframes, and the ATE within 5 mm (its first frame meets an
+    empty map; no finalize in this mode)."""
+    from veloslam_tpu.apps import slam_run as jax_slam_run
+    from veloslam_tpu_torch.apps import slam_run
+    out, ck, ref = tmp_path / "out", tmp_path / "ck", tmp_path / "jax"
+    assert slam_run.main(["--simulate", "0.6", "--device", "cpu",
+                          "--out-dir", str(out),
+                          "--checkpoint-dir", str(ck)]) == 0
+    assert jax_slam_run.main(["--simulate", "0.6", "--platform", "cpu",
+                              "--out-dir", str(ref)]) == 0
+    metrics = json.loads((out / "metrics.json").read_text())
+    want = json.loads((ref / "metrics.json").read_text())
+    traj = np.loadtxt(out / "trajectory.txt", ndmin=2)
+    assert metrics["n_frames"] >= 3 and traj.shape == (metrics["n_frames"],
+                                                       8)
+    assert metrics["n_keyframes"] >= 1 and "ate" in metrics
+    for k in ("n_frames", "n_keyframes", "map_patches"):
+        assert metrics[k] == want[k], k
+    np.testing.assert_array_equal(
+        traj[:, 0], np.loadtxt(ref / "trajectory.txt", ndmin=2)[:, 0])
+    assert abs(metrics["ate"]["rmse"] - want["ate"]["rmse"]) < 0.005
+    assert {"frame", "register", "map_update"} <= set(metrics["timing"])
+    back = SlamPipeline(device="cpu")
+    back.load_checkpoint(str(ck))
+    assert len(back.frames) == metrics["n_frames"]
+    assert back.graph.n_poses == metrics["n_keyframes"]
+    assert back.map.n_patches == metrics["map_patches"] >= 1
+    assert len(back.track) > 0
+    times, _ = back.frames.all_frame_meta()
+    np.testing.assert_array_equal(times, traj[:, 0].astype(np.int64))
+    assert back.frames.get_frame_at(int(times[0]))["xyz"].shape[0] == 32
 
 
 def test_pipeline_needs_a_card_unless_told_cpu():

@@ -297,3 +297,30 @@ def test_lookup_nearest_matches_vmapped_jax():
     got_idx = n(vx.lookup_nearest(got, t(q), t(m), t(usable)))
     np.testing.assert_array_equal(got_idx, exp)
     assert (exp >= 0).mean() > 0.05 and (exp < 0).any()
+
+
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("shape", [SMALL_BOX, (256, 256, 32)])
+def test_lookup_nearest_dense_matches_jax(shape, approx):
+    """The per-frame pipeline's exact nearest-mean lookup through the
+    dense index (and its voxel-centre variant): the chosen rows equal the
+    JAX package's, misses included."""
+    g = _jgrid(*_cloud(5, spread=10.0), np.zeros(3, np.float32), 0.5, 4096)
+    usable = _usable(g)
+    want_idx = jvx.build_dense_index(g, shape=shape)
+    got_idx = vx.build_dense_index(_tgrid(g), shape=shape)
+    np.testing.assert_array_equal(n(got_idx.table), n(want_idx.table))
+    rng = np.random.default_rng(8)
+    q = rng.uniform(-14, 14, (6000, 3)).astype(np.float32)
+    q[:3000] = n(g.mean)[rng.integers(0, int(n(g.occupied).sum()), 3000)] \
+        + rng.normal(0, 0.3, (3000, 3)).astype(np.float32)
+    m = rng.random(6000) < 0.9
+    want = jvx.lookup_nearest_dense(g, want_idx, jnp.asarray(q),
+                                    jnp.asarray(m), usable,
+                                    approx_centers=approx)
+    got = vx.lookup_nearest_dense(_tgrid(g), got_idx, t(q), t(m),
+                                  t(usable), approx_centers=approx)
+    assert n(got).dtype == np.int32
+    np.testing.assert_array_equal(n(got), n(want))
+    hits = n(got) >= 0
+    assert hits.sum() > 500 and (~hits).sum() > 100

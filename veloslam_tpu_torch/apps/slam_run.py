@@ -4,19 +4,25 @@ on a CUDA card.
 Port of veloslam_tpu/apps/slam_run.py: decodes a sequence, runs
 odometry, keyframes, loop closure, landmarks, the graph solve and the
 tiled map, writes `trajectory.txt` and `metrics.json`, and evaluates ATE /
-RPE against ground truth when it has one.  Two modes are ported:
+RPE against ground truth when it has one.  Three modes:
 
+  (default)  the per-frame pipeline (SlamPipeline.run_offline): each
+             frame localized against the map ROI, integrated, keyframes
+             and periodic loop-closure sweeps with a graph solve and an
+             incremental map downdate;
   --batched  full SLAM at bulk-replay rate (SlamPipeline.
              run_offline_batched + finalize);
   --fast     bulk odometry only (StreamingOdometry on the device).
 
-The per-frame pipeline (neither flag), `--checkpoint-dir` and `--bev` are
-not ported yet (ROADMAP.md slice 3).  Everything runs on `--device`
+`--checkpoint-dir` saves a resumable checkpoint (frame meta, INS track,
+map, graph) after the run.  `--bev` (the BEV viewer artifact) is not
+ported yet (ROADMAP.md slice 3a, item h).  Everything runs on `--device`
 (default cuda); `--device cpu` runs the kernels' plain versions.
 
 Usage:
-  python -m veloslam_tpu_torch.apps.slam_run --batched --pcap drive.pcap \\
+  python -m veloslam_tpu_torch.apps.slam_run --pcap drive.pcap \\
       --ins drive_ins.txt
+  python -m veloslam_tpu_torch.apps.slam_run --simulate 7 --out-dir out
   python -m veloslam_tpu_torch.apps.slam_run --batched --simulate 7 \\
       --out-dir out
 """
@@ -61,6 +67,7 @@ def main(argv=None) -> int:
                          "files; also enables ATE evaluation")
     ap.add_argument("--ins-drift", type=float, default=0.0,
                     help="with --simulate: inject linear INS drift (m/s)")
+    ap.add_argument("--checkpoint-dir", help="save a resumable checkpoint")
     ap.add_argument("--gt", help="ground-truth trajectory txt "
                                  "(t_us x y z per row) for ATE")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -79,9 +86,6 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=8192,
                     help="packets per device step (--fast / --batched)")
     args = ap.parse_args(argv)
-    if not (args.fast or args.batched):
-        ap.error("choose --batched or --fast: the per-frame pipeline "
-                 "(SlamPipeline.run_offline) is not ported yet")
 
     from veloslam_tpu_torch.config import SensorConfig, SlamConfig
     from veloslam_tpu_torch.runtime.evaluate import (ate,
@@ -141,7 +145,7 @@ def main(argv=None) -> int:
         print(f"fast path: {res['n_frames']} frames in {wall:.2f}s "
               f"({res['n_frames']/max(wall,1e-9):,.0f} frames/s, "
               f"batch={args.batch}, slots={slots})")
-    else:
+    elif args.batched:
         t0 = time.perf_counter()
         pipe.run_offline_batched(pcap_path, ins_path,
                                  max_packets=args.max_packets,
@@ -155,6 +159,9 @@ def main(argv=None) -> int:
               f"{res['n_keyframes']} keyframes, {res['n_closures']} "
               f"closures, {res['n_landmarks']} landmarks in {wall:.2f}s "
               f"({res['n_frames']/max(wall,1e-9):,.0f} frames/s)")
+    else:
+        res = pipe.run_offline(pcap_path, ins_path,
+                               max_packets=args.max_packets)
 
     traj_path = os.path.join(args.out_dir, "trajectory.txt")
     with open(traj_path, "w") as f:
@@ -180,6 +187,9 @@ def main(argv=None) -> int:
 
     with open(os.path.join(args.out_dir, "metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2, default=str)
+
+    if args.checkpoint_dir:
+        pipe.save_checkpoint(args.checkpoint_dir)
 
     print(f"frames: {res['n_frames']}  keyframes: {res['n_keyframes']}  "
           f"closures: {res['n_closures']}  "

@@ -148,6 +148,52 @@ class Timeline:
             self._cache = (times, vals)
         return self._cache
 
+    # --- queries (batched; q_us may be scalar or array) ---------------------
+
+    def nearest(self, q_us) -> np.ndarray:
+        """Index of the record nearest each query time."""
+        times, _ = self.arrays()
+        q = np.atleast_1d(np.asarray(q_us, np.int64))
+        hi = np.searchsorted(times, q)
+        lo = np.clip(hi - 1, 0, len(times) - 1)
+        hi = np.clip(hi, 0, len(times) - 1)
+        pick_hi = np.abs(times[hi] - q) < np.abs(q - times[lo])
+        idx = np.where(pick_hi, hi, lo)
+        return idx if np.ndim(q_us) else int(idx[0])
+
+    def bracket(self, q_us) -> Tuple[np.ndarray, np.ndarray]:
+        """(lo, hi) indices bracketing each query; lo == hi at the ends of
+        the timeline (single-sided)."""
+        times, _ = self.arrays()
+        hi = np.searchsorted(times, np.atleast_1d(np.asarray(q_us, np.int64)),
+                             side="right")
+        lo = np.clip(hi - 1, 0, len(times) - 1)
+        hi = np.clip(hi, 0, len(times) - 1)
+        return lo, hi
+
+    def range_between(self, t0_us: int, t1_us: int) -> slice:
+        """Slice of records with t0 <= t < t1."""
+        times, _ = self.arrays()
+        return slice(int(np.searchsorted(times, t0_us)),
+                     int(np.searchsorted(times, t1_us)))
+
+    # --- persistence (npz, byte-compatible with the JAX package's) ----------
+
+    def save(self, path: str) -> None:
+        times, vals = self.arrays()
+        np.savez(path, __times_us=times, **vals)
+
+    @classmethod
+    def load(cls, path: str) -> "Timeline":
+        data = np.load(path, allow_pickle=False)
+        fields = tuple(k for k in data.files if k != "__times_us")
+        tl = cls(fields)
+        times = data["__times_us"]
+        tl._times = times.tolist()
+        tl._values = {f: list(data[f]) for f in fields}
+        tl._cache = None
+        return tl
+
 
 class PoseTrack:
     """Host pose timeline (q wxyz, t, v; int64 µs) with window extraction."""
@@ -184,3 +230,12 @@ class PoseTrack:
             "t": vals["t"][sl].astype(np.float32),
             "v": vals["v"][sl].astype(np.float32),
         }
+
+    def save(self, path: str) -> None:
+        self.timeline.save(path)
+
+    @classmethod
+    def load(cls, path: str) -> "PoseTrack":
+        pt = cls()
+        pt.timeline = Timeline.load(path)
+        return pt

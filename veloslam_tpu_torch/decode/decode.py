@@ -1,17 +1,19 @@
 """Vectorized HDL packet decode + INS motion compensation on torch tensors.
 
-Port of veloslam_tpu/decode/decode.py (the parts the bulk-odometry path
-runs).  A batch of (N, 1206) uint8 packets decodes as dense (N, 12, 32)
-arrays: byte fields by integer arithmetic, the per-packet azimuth step
-(sorted index 6 of the 11 block diffs), per-laser time/azimuth
-interpolation from the sensor timing model, and polar → Cartesian with
-the 5-term laser calibration.  `compensate` interpolates an INS pose per
-firing block and applies the full SE(3) pose to every point.
+Port of veloslam_tpu/decode/decode.py.  A batch of (N, 1206) uint8
+packets decodes as dense (N, 12, 32) arrays: byte fields by integer
+arithmetic, the per-packet azimuth step (sorted index 6 of the 11 block
+diffs), per-laser time/azimuth interpolation from the sensor timing
+model, polar → Cartesian with the 5-term laser calibration, and the
+crop-region and points-skip options as mask updates.  Dual-return pairs
+are classified and filtered as in the JAX package.  `compensate`
+interpolates an INS pose per firing block (or, with `per_packet`, one per
+packet) and applies the full SE(3) pose to every point.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,8 +124,15 @@ def _timing_model(model: str, device):
 
 
 def decode_packets(pkts_u8: torch.Tensor, calib: DeviceCalib, *,
-                   model: str) -> DecodedBatch:
-    """Decode (N, 1206) uint8 packets into sensor-frame points + masks."""
+                   model: str,
+                   crop_region: Optional[Tuple[float, ...]] = None,
+                   crop_inside: bool = False,
+                   points_skip: int = 0) -> DecodedBatch:
+    """Decode (N, 1206) uint8 packets into sensor-frame points + masks.
+
+    `points_skip` keeps every (points_skip+1)-th firing block;
+    `crop_region` (x0, x1, y0, y1, z0, z1) keeps only the points inside
+    the box, or with `crop_inside` drops them."""
     block_id, az_ticks, dist_raw, intensity, _ = parse_packet_fields(pkts_u8)
     n = pkts_u8.shape[0]
     device = pkts_u8.device
@@ -173,10 +182,86 @@ def decode_packets(pkts_u8: torch.Tensor, calib: DeviceCalib, *,
     xyz = torch.stack([x, y, z], dim=-1)
 
     valid = (dist_raw != 0) & calib.laser_enabled[corr_id]
+    if points_skip:
+        keep = (torch.arange(C.HDL_FIRINGS_PER_PACKET, device=device)
+                % (points_skip + 1)) == 0
+        valid = valid & keep[None, :, None]
+    if crop_region is not None:
+        x0, x1, y0, y1, z0, z1 = crop_region
+        inside = ((x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+                  & (z >= z0) & (z <= z1))
+        valid = valid & (~inside if crop_inside else inside)
     return DecodedBatch(xyz=xyz, intensity=intensity, dist_m=dist_m,
                         valid=valid, laser_id=calib.beam_row[corr_id],
                         az_ticks=az_ticks, az_pt_ticks=az_pt, dt_s=dt_s,
                         is_upper=is_upper, subfiring=subfiring)
+
+
+def dual_return_flags(decoded: DecodedBatch):
+    """Per-point dual-return classification (batch-local): a block whose
+    azimuth repeats its neighbour's is one member of a dual pair.
+
+    Returns (dist_flag, int_flag, is_dual), each (N, 12, 32):
+      dist_flag: int8 −1 nearer return, +1 farther, 0 single/equal;
+      int_flag:  int8 +1 higher intensity, −1 lower, 0 single/equal;
+      is_dual:   bool, True on both members of a pair where both returned.
+    Pairs spanning a batch boundary count as single returns."""
+    n = decoded.xyz.shape[0]
+    shape = (n * C.HDL_FIRINGS_PER_PACKET, C.HDL_LASERS_PER_FIRING)
+    az = decoded.az_ticks.reshape(-1)
+    edge = torch.full((1,), -1, dtype=az.dtype, device=az.device)
+    prev_az = torch.cat([edge, az[:-1]])
+    next_az = torch.cat([az[1:], edge])
+    second = az == prev_az                    # this block repeats previous
+    first = az == next_az                     # next block repeats this one
+    sec = second[:, None]
+
+    def other(a):
+        return torch.where(sec, torch.roll(a, 1, dims=0),
+                           torch.roll(a, -1, dims=0))
+
+    dist = decoded.dist_m.reshape(shape)
+    inten = decoded.intensity.reshape(shape)
+    valid = decoded.valid.reshape(shape)
+    is_dual = (first | second)[:, None] & valid & other(valid)
+    other_dist, other_int = other(dist), other(inten)
+    zero = torch.zeros(shape, dtype=torch.int8, device=az.device)
+    dist_flag = torch.where(
+        ~is_dual, zero, torch.where(dist < other_dist, -1,
+                                    torch.where(dist > other_dist, 1, 0)
+                                    ).to(torch.int8))
+    int_flag = torch.where(
+        ~is_dual, zero, torch.where(inten > other_int, 1,
+                                    torch.where(inten < other_int, -1, 0)
+                                    ).to(torch.int8))
+    out = (n, C.HDL_FIRINGS_PER_PACKET, C.HDL_LASERS_PER_FIRING)
+    return dist_flag.reshape(out), int_flag.reshape(out), is_dual.reshape(out)
+
+
+def apply_dual_return_filter(decoded: DecodedBatch, mode: str
+                             ) -> DecodedBatch:
+    """Keep one member of each dual pair: mode "near" | "far" | "high" |
+    "low".  Single returns always pass; a pair with equal distance and
+    intensity keeps its first member only."""
+    dist_flag, int_flag, is_dual = dual_return_flags(decoded)
+    az = decoded.az_ticks.reshape(-1)
+    prev_az = torch.cat([torch.full((1,), -1, dtype=az.dtype,
+                                    device=az.device), az[:-1]])
+    second = (az == prev_az).reshape(is_dual.shape[:2])[..., None]
+    if mode == "near":
+        keep = dist_flag == -1
+    elif mode == "far":
+        keep = dist_flag == 1
+    elif mode == "high":
+        keep = int_flag == 1
+    elif mode == "low":
+        keep = int_flag == -1
+    else:
+        raise ValueError(f"unknown dual-return filter {mode!r}")
+    tie = is_dual & (dist_flag == 0) & (int_flag == 0)
+    keep = torch.where(tie, ~second, keep)
+    return decoded._replace(valid=decoded.valid
+                            & torch.where(is_dual, keep, True))
 
 
 def frame_break_flags(az_ticks: torch.Tensor, last_azimuth: torch.Tensor):
@@ -191,15 +276,25 @@ def frame_break_flags(az_ticks: torch.Tensor, last_azimuth: torch.Tensor):
 
 def compensate(decoded: DecodedBatch, pkt_rel_s: torch.Tensor,
                track_rel_s: torch.Tensor, track_q: torch.Tensor,
-               track_t: torch.Tensor, track_v: torch.Tensor):
+               track_t: torch.Tensor, track_v: torch.Tensor, *,
+               per_packet: bool = False):
     """Sensor-frame points → world frame with one INS pose per firing
-    block.  Returns (xyz_world (N, 12, 32, 3), firing poses (N, 12))."""
+    block, or with `per_packet` one per packet (at its time stamp).
+    Returns (xyz_world (N, 12, 32, 3), firing poses (N, 12))."""
     n = decoded.xyz.shape[0]
-    block_dt = decoded.dt_s[:, :, 0]                        # (N, 12)
-    q_t = (pkt_rel_s[:, None] + block_dt).reshape(-1)
-    poses = interpolate_poses(track_rel_s, track_q, track_t, track_v, q_t)
-    poses = se3.Pose(poses.q.reshape(n, C.HDL_FIRINGS_PER_PACKET, 4),
-                     poses.t.reshape(n, C.HDL_FIRINGS_PER_PACKET, 3))
+    blocks = C.HDL_FIRINGS_PER_PACKET
+    if per_packet:
+        poses = interpolate_poses(track_rel_s, track_q, track_t, track_v,
+                                  pkt_rel_s)
+        poses = se3.Pose(poses.q[:, None].expand(n, blocks, 4),
+                         poses.t[:, None].expand(n, blocks, 3))
+    else:
+        block_dt = decoded.dt_s[:, :, 0]                    # (N, 12)
+        q_t = (pkt_rel_s[:, None] + block_dt).reshape(-1)
+        poses = interpolate_poses(track_rel_s, track_q, track_t, track_v,
+                                  q_t)
+        poses = se3.Pose(poses.q.reshape(n, blocks, 4),
+                         poses.t.reshape(n, blocks, 3))
     xyz_w = se3.apply(se3.Pose(poses.q[:, :, None], poses.t[:, :, None]),
                       decoded.xyz)
     return xyz_w, poses

@@ -1,12 +1,22 @@
-"""Gather-based frame sampling — the bulk-odometry fast path.
+"""Streaming frame assembly and gather-based frame sampling.
 
-Port of `SampleCarry`, `SampledFrames` and `sample_frames` from
-veloslam_tpu/decode/frames.py.  Decode output is frame-contiguous (firing
-blocks in time order), so a frame is a block range of the (N*12, 32)
-decode array plus the open-frame carry.  Per frame, the `points_per_frame`
-valid points with the smallest 16-bit multiplicative hash of their
-assembled flat index (laser·max_firings + firing position) are selected
-with one stable (slot | hash) key sort and a rank gather.
+Port of veloslam_tpu/decode/frames.py:
+
+  * `assemble_frames` (the per-frame pipeline): each call consumes one
+    decoded batch plus the open-frame carry and scatters every point into
+    dense per-beam frame slots (S, L, MAX_F): wrap flags → cumsum frame
+    ids → one scatter per channel.  The JAX original's scatter lets a
+    repeated index write in an undefined order; here the last write of
+    each cell wins, chosen by an integer max, so the result is the same on
+    every device.  Per-frame reductions are integer or min/max, which no
+    order changes.
+  * `sample_frames` (the bulk-odometry fast path): decode output is
+    frame-contiguous (firing blocks in time order), so a frame is a block
+    range of the (N*12, 32) decode array plus the open-frame carry.  Per
+    frame, the `points_per_frame` valid points with the smallest 16-bit
+    multiplicative hash of their assembled flat index (laser·max_firings +
+    firing position) are selected with one stable (slot | hash) key sort
+    and a rank gather.
 """
 
 from __future__ import annotations
@@ -20,6 +30,172 @@ from veloslam_tpu_torch.core.segment import segment_min, take
 from veloslam_tpu_torch.decode.decode import DecodedBatch, frame_break_flags
 
 _HASH_MUL = 2654435761      # Fibonacci hashing constant (uint32)
+
+
+class FrameBatch(NamedTuple):
+    """`max_frames` padded frame slots (leading axis = slot)."""
+
+    xyz: torch.Tensor        # (S, L, MAX_F, 3)
+    intensity: torch.Tensor  # (S, L, MAX_F)
+    rel_s: torch.Tensor      # (S, L, MAX_F) — relative to the frame start
+    azimuth: torch.Tensor    # (S, L, MAX_F)
+    mask: torch.Tensor       # (S, L, MAX_F)
+    n_points: torch.Tensor   # (S,) int32
+
+
+class AssemblyCarry(NamedTuple):
+    """Open-frame state threaded between assemble_frames calls."""
+
+    xyz: torch.Tensor           # (L, MAX_F, 3)
+    intensity: torch.Tensor     # (L, MAX_F)
+    rel_s: torch.Tensor         # (L, MAX_F) — frame-relative
+    azimuth: torch.Tensor       # (L, MAX_F)
+    mask: torch.Tensor          # (L, MAX_F)
+    n_firings: torch.Tensor     # () int32 — firing positions consumed
+    last_azimuth: torch.Tensor  # () int32
+
+    @staticmethod
+    def init(n_beams: int, max_firings: int = C.MAX_FIRINGS_PER_FRAME, *,
+             device) -> "AssemblyCarry":
+        L, F = n_beams, max_firings
+        f32 = dict(dtype=torch.float32, device=device)
+        return AssemblyCarry(
+            xyz=torch.zeros((L, F, 3), **f32),
+            intensity=torch.zeros((L, F), **f32),
+            rel_s=torch.zeros((L, F), **f32),
+            azimuth=torch.zeros((L, F), **f32),
+            mask=torch.zeros((L, F), dtype=torch.bool, device=device),
+            n_firings=torch.zeros((), dtype=torch.int32, device=device),
+            last_azimuth=torch.full((), -1, dtype=torch.int32,
+                                    device=device))
+
+
+def _segment_reduce(data: torch.Tensor, ids: torch.Tensor, n: int,
+                    reduce: str, ident) -> torch.Tensor:
+    """jax.ops.segment_{max,min,sum} over `n` segments of 1-D `data`:
+    rows with an id ≥ n are dropped (they go to one trash segment, cut
+    off), empty segments take `ident`."""
+    out = torch.full((n + 1,), ident, dtype=data.dtype, device=data.device)
+    out.scatter_reduce_(0, torch.clamp(ids, max=n).long(), data, reduce,
+                        include_self=True)
+    return out[:n]
+
+
+def assemble_frames(decoded: DecodedBatch, xyz_world: torch.Tensor,
+                    pkt_rel_s: torch.Tensor, carry: AssemblyCarry,
+                    carry_start_rel_s: torch.Tensor, *, model: str,
+                    n_beams: int, max_frames: int = 8,
+                    max_firings: int = C.MAX_FIRINGS_PER_FRAME
+                    ) -> Tuple[FrameBatch, torch.Tensor, torch.Tensor,
+                               AssemblyCarry, torch.Tensor]:
+    """One assembly step.
+
+    Args:
+      decoded: decode_packets output, (N, 12, 32) leading shape.
+      xyz_world: compensated points (N, 12, 32, 3) (decoded.xyz to skip
+        compensation).
+      pkt_rel_s: (N,) packet times (float32 s, batch time base).
+      carry: open-frame state from the previous call.
+      carry_start_rel_s: () float32 — the open frame's start in this
+        batch's time base (ignored when carry.n_firings == 0).
+    Returns (frames with max_frames slots, n_completed () int32 — valid
+    slots, the excess of a batch that completes more being lost,
+    start_rel_s (max_frames,) float32 per slot, new carry,
+    open_start_rel_s () float32).  No host read."""
+    lasers = C.HDL_LASERS_PER_FIRING
+    N = decoded.xyz.shape[0]
+    B = N * C.HDL_FIRINGS_PER_PACKET        # firing blocks in batch
+    L, F, S = n_beams, max_firings, max_frames
+    TRASH = S + 1                            # slot of the dropped writes
+    ppb = 2 if model == "vlp16" else 1       # positions per block
+    dev = xyz_world.device
+    i32 = torch.int32
+
+    breaks, last_az = frame_break_flags(decoded.az_ticks, carry.last_azimuth)
+    fid = torch.cumsum(breaks.to(i32), 0, dtype=i32)        # (B,) 0..K
+    n_frames = fid[-1] + 1
+
+    # Firing-position units per block (HDL-64 pairs share one position).
+    if model == "hdl64":
+        unit = decoded.is_upper.reshape(-1).to(i32)
+    else:
+        unit = torch.ones((B,), dtype=i32, device=dev)
+    cum = torch.cumsum(unit, 0, dtype=i32)                   # inclusive
+    # Units consumed before each frame's first block.
+    seg_base = _segment_reduce(torch.where(breaks, cum - unit, -1), fid,
+                               S + 2, "amax", torch.iinfo(i32).min)
+    fid_c = torch.clamp(fid, max=S + 1).long()
+    base = torch.where(fid == 0, -carry.n_firings, seg_base[fid_c])
+    pos = torch.clamp(cum - 1 - base, min=0)                 # block position
+
+    # Block time (batch base) and per-frame start time.
+    rel_block = pkt_rel_s.repeat_interleave(C.HDL_FIRINGS_PER_PACKET) + \
+        decoded.dt_s[:, :, 0].reshape(-1)                     # (B,)
+    seg_start = _segment_reduce(rel_block, fid, S + 2, "amin", float("inf"))
+    seg_start[0] = torch.where(carry.n_firings > 0, carry_start_rel_s,
+                               seg_start[0])
+    frame_start = seg_start[fid_c]                           # (B,)
+
+    # Per-point scatter indices: (slot, laser, position).
+    slot_b = torch.clamp(fid, max=TRASH)
+    pos_pt = pos[:, None] * ppb + decoded.subfiring.reshape(B, lasers)
+    ok = decoded.valid.reshape(B, lasers) & (pos_pt < F)
+    sl = torch.where(ok, slot_b[:, None], TRASH)
+    pp = torch.where(ok, torch.clamp(pos_pt, max=F - 1), F - 1)
+    lp = torch.clamp(decoded.laser_id.reshape(B, lasers), 0, L - 1)
+    flat_idx = ((sl * L + lp) * F + pp).reshape(-1).long()   # (B*32,)
+    M = (S + 2) * L * F
+    # The last write of each cell wins (the source order, as a sequential
+    # scatter writes); only the winners are written, so no two writes
+    # meet in one cell on any device.
+    src = torch.arange(B * lasers, device=dev)
+    last = torch.full((M,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, flat_idx, src, "amax", include_self=True)
+    win = last[flat_idx] == src
+    cells, rows = flat_idx[win], src[win]
+
+    def scatter(carry_arr, vals, extra=()):
+        buf = torch.zeros((S + 2, L, F, *extra), dtype=carry_arr.dtype,
+                          device=dev)
+        buf[0] = carry_arr
+        buf.view(M, *extra)[cells] = vals.reshape(-1, *extra)[rows]
+        return buf
+
+    xyz_buf = scatter(carry.xyz, xyz_world.reshape(B, lasers, 3), (3,))
+    rel_pt = (rel_block[:, None] + (decoded.dt_s.reshape(B, lasers)
+                                    - decoded.dt_s[:, :, :1].reshape(B, 1)))
+    rel_frame_pt = rel_pt - frame_start[:, None]             # frame-relative
+    int_buf = scatter(carry.intensity, decoded.intensity.reshape(B, lasers))
+    rel_buf = scatter(carry.rel_s, rel_frame_pt)
+    az_buf = scatter(carry.azimuth, decoded.az_pt_ticks.reshape(B, lasers))
+    mask_buf = scatter(carry.mask, torch.ones_like(ok))
+    mask_buf[TRASH] = False
+
+    # Per-slot bookkeeping.
+    units_per_frame = _segment_reduce(unit, fid, S + 2, "sum", 0)
+    units_per_frame[0] += carry.n_firings
+
+    n_completed = torch.clamp(n_frames - 1, max=S)
+    open_slot = n_completed
+
+    mask_out = mask_buf[:S]
+    frames = FrameBatch(
+        xyz=xyz_buf[:S], intensity=int_buf[:S], rel_s=rel_buf[:S],
+        azimuth=az_buf[:S], mask=mask_out,
+        n_points=mask_out.sum(dim=(1, 2)).to(i32))
+    new_carry = AssemblyCarry(
+        xyz=take(xyz_buf, open_slot), intensity=take(int_buf, open_slot),
+        rel_s=take(rel_buf, open_slot), azimuth=take(az_buf, open_slot),
+        mask=take(mask_buf, open_slot),
+        n_firings=take(units_per_frame, open_slot), last_azimuth=last_az)
+    return (frames, n_completed, seg_start[:S], new_carry,
+            take(seg_start, open_slot))
+
+
+def frame_points(frame_xyz: torch.Tensor, frame_mask: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flatten a frame's (L, MAX_F, 3)+mask into (L·MAX_F, 3)+mask."""
+    return frame_xyz.reshape(-1, 3), frame_mask.reshape(-1)
 
 
 class SampleCarry(NamedTuple):

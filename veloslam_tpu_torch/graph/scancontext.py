@@ -1,17 +1,18 @@
 """Scan-context global descriptors: drift-independent place recognition.
 
-Port of the device half of veloslam_tpu/graph/scancontext.py.  Each
-keyframe scan becomes a polar bird's-eye descriptor (rings × sectors, the
-max height per cell); all keyframe pairs are scored at once by cosine
-similarity maximized over sector shifts (rotation about z), one matmul
-per shift.  The best shift doubles as the yaw prior of the geometric
-verifier.
+Port of veloslam_tpu/graph/scancontext.py.  Each keyframe scan becomes
+a polar bird's-eye descriptor (rings × sectors, the max height per cell);
+all keyframe pairs are scored at once by cosine similarity maximized over
+sector shifts (rotation about z), one matmul per shift.  The best shift
+doubles as the yaw prior of the geometric verifier.  `propose` (the
+per-frame pipeline's host proposal from a score matrix) is numpy, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,3 +79,35 @@ def relative_yaw(shift, n_sectors: int = N_SECTORS):
     wrapped to (−π, π]."""
     yaw = -np.asarray(shift) * (2.0 * np.pi / n_sectors)
     return (yaw + np.pi) % (2.0 * np.pi) - np.pi
+
+
+def propose(scores: np.ndarray, shifts: np.ndarray, *, n_valid: int,
+            min_score: float = 0.6, min_gap: int = 20,
+            max_per_keyframe: int = 1,
+            max_candidates: Optional[int] = None,
+            exclude=()) -> List[Tuple[int, int, float, int]]:
+    """Host-side proposal from an all-pairs score matrix (numpy).
+
+    Returns [(i, j, score, shift)] with i < j − min_gap, best-first,
+    at most `max_per_keyframe` uses of any keyframe, skipping `exclude`
+    pairs.  `n_valid` bounds the real keyframes (the matrix may be
+    padded)."""
+    s = np.asarray(scores[:n_valid, :n_valid])
+    ii, jj = np.nonzero(np.triu(np.ones_like(s, bool), k=max(min_gap, 1))
+                        & (s >= min_score))
+    order = np.argsort(-s[ii, jj])
+    taken = np.zeros(n_valid, np.int64)
+    excl = set(exclude)
+    out: List[Tuple[int, int, float, int]] = []
+    for k in order:
+        i, j = int(ii[k]), int(jj[k])
+        if (i, j) in excl:
+            continue
+        if taken[i] >= max_per_keyframe or taken[j] >= max_per_keyframe:
+            continue
+        taken[i] += 1
+        taken[j] += 1
+        out.append((i, j, float(s[i, j]), int(shifts[i, j])))
+        if max_candidates is not None and len(out) >= max_candidates:
+            break
+    return out

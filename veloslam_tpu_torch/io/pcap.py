@@ -1,7 +1,8 @@
 """pcap file read/write without libpcap (host, numpy).
 
-A jax-free copy of veloslam_tpu/io/pcap.py's writer and bulk readers
-(importing the original runs the JAX package's __init__): a 24-byte
+A jax-free copy of veloslam_tpu/io/pcap.py's writer, its per-record
+reader `PcapReader` and its bulk readers (importing the original runs the
+JAX package's __init__): a 24-byte
 global header plus 16-byte record headers; only UDP payloads are read,
 with the 42-byte Ethernet/IPv4/UDP framing stripped; the writer
 synthesizes that framing for 1206-byte LiDAR packets (port 2368) and
@@ -14,7 +15,7 @@ its native pump); tests/test_torch_host.py holds the results equal.
 from __future__ import annotations
 
 import struct
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -60,6 +61,60 @@ class PcapWriter:
         self._f.write(RECORD_HEADER.pack(t_us // 1_000_000, t_us % 1_000_000,
                                          len(pkt), len(pkt)))
         self._f.write(pkt)
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class PcapReader:
+    """Iterate (payload bytes, time µs, record byte offset) over a pcap's
+    UDP records; `seek` to a record offset re-reads from there."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._f = open(path, "rb")
+        hdr = self._f.read(GLOBAL_HEADER.size)
+        if len(hdr) < GLOBAL_HEADER.size:
+            raise ValueError(f"{path}: truncated pcap global header")
+        magic = struct.unpack("<I", hdr[:4])[0]
+        if magic == PCAP_MAGIC_US:
+            self._t_scale = 1
+        elif magic == PCAP_MAGIC_NS:
+            self._t_scale = 1000
+        else:
+            raise ValueError(f"{path}: bad pcap magic {magic:#x}")
+        self.linktype = GLOBAL_HEADER.unpack(hdr)[6]
+
+    def seek(self, offset: int) -> None:
+        self._f.seek(offset)
+
+    def tell(self) -> int:
+        return self._f.tell()
+
+    def __iter__(self) -> Iterator[Tuple[bytes, int, int]]:
+        return self
+
+    def __next__(self) -> Tuple[bytes, int, int]:
+        while True:
+            offset = self._f.tell()
+            hdr = self._f.read(RECORD_HEADER.size)
+            if len(hdr) < RECORD_HEADER.size:
+                raise StopIteration
+            sec, frac, incl, _ = RECORD_HEADER.unpack(hdr)
+            data = self._f.read(incl)
+            if len(data) < incl:
+                raise StopIteration
+            t_us = sec * 1_000_000 + (frac // self._t_scale
+                                      if self._t_scale > 1 else frac)
+            # Link/IP/UDP framing stripped; non-UDP records skipped.
+            if incl > ETH_IP_UDP_HEADER_LEN and data[23:24] == b"\x11":
+                return data[ETH_IP_UDP_HEADER_LEN:], t_us, offset
 
     def close(self) -> None:
         self._f.close()

@@ -1,8 +1,8 @@
 """Patch-tiled persistent voxel-Gaussian map.
 
 Port of veloslam_tpu/map/voxelmap.py (tiling, residency, integration,
-persistence; the ROI assembly and BEV layers of the per-frame path and
-the viewer are not ported yet, ROADMAP.md slice 3):
+the ROI assembly of the per-frame pipeline, persistence; the BEV layers
+of the viewer are not ported yet, ROADMAP.md slice 3a item h):
 
   * the world is tiled into square patches (default 100 m); each patch
     stores sufficient statistics per occupied voxel (count, Σp, Σppᵀ
@@ -12,6 +12,10 @@ the viewer are not ported yet, ROADMAP.md slice 3):
     transformed and built into 64 stacked grids in one batched pass
     (se3.apply + registration.voxel.build_grid), read back once, and
     merged on the host;
+  * `roi_grid` assembles the patches within ±roi_range of a query point
+    into one fixed-capacity VoxelGrid on the map's device, keys packed
+    relative to the query (host numpy, one upload): the per-frame
+    pipeline's registration target;
   * a resident budget with LRU spill to npz keeps host RAM bounded;
     spilled patches reload transparently on access.
 
@@ -288,6 +292,98 @@ class VoxelMap:
         statistics and prune voxels whose count falls to ~zero (the exact
         inverse of integrate_points for the same points)."""
         self.integrate_points(pts_world, mask, center, sign=-1.0)
+
+    # --- ROI assembly (the registration working set) -----------------------
+
+    def roi_patches(self, x: float, y: float) -> List[Tuple[int, int]]:
+        """Tiles overlapping ±roi_range around (x, y)."""
+        r = self.cfg.roi_range_m
+        s = self.cfg.patch_size_m
+        x0, x1 = int(np.floor((x - r) / s)), int(np.floor((x + r) / s))
+        y0, y1 = int(np.floor((y - r) / s)), int(np.floor((y + r) / s))
+        return [(ix, iy) for ix in range(x0, x1 + 1)
+                for iy in range(y0, y1 + 1)
+                if (ix, iy) in self._patches or (ix, iy) in self._spilled]
+
+    def roi_grid(self, x: float, y: float, *, capacity: Optional[int] = None
+                 ) -> Optional[vx.VoxelGrid]:
+        """Assemble the ROI as one VoxelGrid on the map's device, centred
+        near the query (keys packed relative to the query point, so the
+        ±512-voxel packed range covers the ROI wherever it lies); the
+        voxels nearest the query first when the ROI holds more than
+        `capacity`.  None when no tile around the query holds a voxel."""
+        cap = capacity or self.cfg.voxels_per_patch
+        tiles = self.roi_patches(x, y)
+        if not tiles:
+            return None
+        coords_l, count_l, s1_l, s2_l = [], [], [], []
+        for t in tiles:
+            p = self._materialize(t, create=False)
+            if p is None or p.n_voxels == 0:
+                continue
+            coords_l.append(p.coords)
+            count_l.append(p.count)
+            s1_l.append(p.s1)
+            s2_l.append(p.s2)
+        if not coords_l:
+            return None
+        coords = np.concatenate(coords_l)
+        count = np.concatenate(count_l)
+        s1 = np.concatenate(s1_l)
+        s2 = np.concatenate(s2_l)
+        vs = self.cfg.voxel_size
+        # Keep only voxels inside the ROI box.
+        centers = (coords + 0.5) * vs
+        r = self.cfg.roi_range_m
+        keep = (np.abs(centers[:, 0] - x) <= r) & \
+            (np.abs(centers[:, 1] - y) <= r)
+        coords, count, s1, s2 = (coords[keep], count[keep], s1[keep],
+                                 s2[keep])
+        centers = centers[keep]
+        if len(coords) > cap:                      # nearest-first truncation
+            d2 = (centers[:, 0] - x) ** 2 + (centers[:, 1] - y) ** 2
+            sel = np.argsort(d2)[:cap]
+            coords, count, s1, s2 = (coords[sel], count[sel], s1[sel],
+                                     s2[sel])
+            centers = centers[sel]
+
+        origin = np.array([np.floor(x / vs) * vs, np.floor(y / vs) * vs, 0.0],
+                          np.float32)
+        bits = 10
+        half = 1 << (bits - 1)
+        rel = coords - np.floor(origin / vs).astype(np.int64) + half
+        ok = np.all((rel >= 0) & (rel < (1 << bits)), axis=1)
+        rel, count, s1, s2, centers = (rel[ok], count[ok], s1[ok], s2[ok],
+                                       centers[ok])
+        keys = ((rel[:, 0] << (2 * bits)) | (rel[:, 1] << bits)
+                | rel[:, 2]).astype(np.int64)
+        order = np.argsort(keys)
+        n = min(len(order), cap)
+        denom = np.maximum(count[order], 1.0)[:, None]
+        mean_rel = s1[order] / denom
+        cov = s2[order] / denom[..., None] \
+            - mean_rel[:, :, None] * mean_rel[:, None, :]
+        mean = mean_rel + centers[order]
+
+        # One float32 buffer, one upload: [keys (int32 bits), count,
+        # mean, cov] per row, then origin and the voxel size.
+        rows = np.zeros((cap, 14), np.float32)
+        rows[:, 0] = np.full(cap, vx.INVALID_KEY, np.int32).view(np.float32)
+        rows[:n, 0] = keys[order][:n].astype(np.int32).view(np.float32)
+        rows[:n, 1] = count[order][:n]
+        rows[:n, 2:5] = mean[:n]
+        rows[:n, 5:14] = cov[:n].reshape(-1, 9)
+        buf = np.concatenate([rows.T.reshape(-1), origin,
+                              np.asarray([vs], np.float32)])
+        dev = torch.as_tensor(buf, device=self.device)
+        cols = dev[:14 * cap].reshape(14, cap)
+        return vx.VoxelGrid(
+            keys=cols[0].contiguous().view(torch.int32),
+            count=cols[1].contiguous(),
+            mean=cols[2:5].T.contiguous(),
+            cov=cols[5:14].T.reshape(cap, 3, 3).contiguous(),
+            origin=dev[14 * cap:14 * cap + 3],
+            voxel_size=dev[14 * cap + 3])
 
     # --- persistence -------------------------------------------------------
 

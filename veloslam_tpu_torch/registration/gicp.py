@@ -5,8 +5,11 @@ Port of veloslam_tpu/registration/gicp.py.  A target is a voxel-Gaussian
 grid with a closed-form plane normal per voxel, plus a packed (V, 8) row
 table [μ, n, 0, 0] that the association gathers from in one kernel
 launch.  Correspondences come from the pre-dilated dense index (shared
-map target, one gather per point) or from seven binary searches with a
-nearest-mean choice (per-scan targets, loop-closure verification).  Each
+map target, one gather per point; the bulk paths), from the plain dense
+index with the exact nearest mean of seven cells (a shared target, the
+per-frame pipeline), or from seven binary searches with a nearest-mean
+choice (per-scan targets: loop-closure verification, and the per-frame
+pipeline without a dense index, its one target stacked at F = 1).  Each
 Gauss-Newton iteration with fixed correspondences is one
 `normal_equations.gn_iteration` call for all F slots: the fused normal
 equations, a damped 6×6 Cholesky solve, a step clamp and a left
@@ -17,7 +20,7 @@ throughout, and F stacked targets are leaves with a leading F.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -26,6 +29,9 @@ from veloslam_tpu_torch.registration import voxel as vx
 from veloslam_tpu_torch.registration.gather import gather_rows8
 from veloslam_tpu_torch.registration.normal_equations import (
     fused_normal_equations, gn_iteration)
+
+# The correspondence index of a shared target.
+Index = Union[vx.DilatedIndex, vx.DenseIndex]
 
 
 class GicpResult(NamedTuple):
@@ -95,13 +101,15 @@ def stack_plane_grids(grids) -> PlaneGrid:
 
 
 def associate(pts, mask, pose: se3.Pose, target: PlaneGrid,
-              dense: Optional[vx.DilatedIndex] = None):
+              dense: Optional[Index] = None):
     """Correspondences at the CURRENT poses: per-point target plane
     (μ, n) as contiguous (F, P, 3) and the hit mask (F, P).
 
-    A shared target comes with its DilatedIndex (one gather per point);
-    F stacked targets (`dense=None`) use `voxel.lookup_nearest`.  Either
-    way (μ, n) come from one row-gather kernel launch."""
+    A shared target comes with its DilatedIndex (one gather per point) or
+    its DenseIndex (the nearest usable mean of seven cells,
+    `voxel.lookup_nearest_dense`); F stacked targets (`dense=None`) use
+    `voxel.lookup_nearest`.  Either way (μ, n) come from one row-gather
+    kernel launch."""
     F, P = mask.shape
     g = target.grid
     p = se3.apply(se3.Pose(pose.q[:, None], pose.t[:, None]), pts)
@@ -112,7 +120,12 @@ def associate(pts, mask, pose: se3.Pose, target: PlaneGrid,
             F, dtype=torch.int32, device=pts.device)[:, None]
         table = target.rows.reshape(F * V, 8)
     else:
-        idx = vx.lookup_dilated(g, dense, p, mask)
+        if isinstance(dense, vx.DenseIndex):
+            idx = vx.lookup_nearest_dense(g, dense, p.reshape(-1, 3),
+                                          mask.reshape(-1), target.usable
+                                          ).reshape(F, P)
+        else:
+            idx = vx.lookup_dilated(g, dense, p, mask)
         rows = torch.clamp(idx, min=0)
         table = target.rows
     got = gather_rows8(table, rows.reshape(-1)).reshape(F, P, 8)
@@ -130,7 +143,7 @@ def normal_equations_fixed(pts, pose: se3.Pose, mu, n, hit, *,
 
 
 def normal_equations(pts, mask, pose: se3.Pose, target: PlaneGrid, *,
-                     dense: Optional[vx.DilatedIndex] = None,
+                     dense: Optional[Index] = None,
                      huber_delta: float = 0.5, max_dist: float = 2.0):
     """One full linearization (associate + linearize at the same poses):
     (H (F,6,6), b (F,6), err (F,), n_matched (F,))."""
@@ -140,7 +153,7 @@ def normal_equations(pts, mask, pose: se3.Pose, target: PlaneGrid, *,
 
 
 def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
-                   dense: Optional[vx.DilatedIndex] = None, *,
+                   dense: Optional[Index] = None, *,
                    iterations: int = 16, damping: float = 1e-6,
                    huber_delta: float = 0.5, max_dist: float = 2.0,
                    reassociate_every: int = 1) -> GicpResult:
@@ -148,9 +161,11 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
     iteration count; correspondences are searched every
     `reassociate_every` iterations.
 
-    Two uses, as in the JAX original:
+    Three uses, as in the JAX original:
       * odometry — every frame slot against one shared map target with
         its DilatedIndex;
+      * the per-frame pipeline — one scan against the map ROI with its
+        DenseIndex (or, without one, the ROI stacked at F = 1);
       * loop-closure verification — each candidate against its own target
         (F stacked targets, `dense=None`).
 
@@ -181,9 +196,10 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
 
 
 def register(pts, mask, target: PlaneGrid, init_pose: se3.Pose,
-             dense: vx.DilatedIndex, **kw) -> GicpResult:
-    """One scan ((P, 3), (P,), pose (4,)/(3,)) against a shared target:
-    `register_batch` at F = 1, with the slot axis dropped."""
+             dense: Optional[Index], **kw) -> GicpResult:
+    """One scan ((P, 3), (P,), pose (4,)/(3,)) against one target:
+    `register_batch` at F = 1, with the slot axis dropped (`dense=None`
+    takes the target stacked at F = 1)."""
     res = register_batch(pts[None], mask[None], target,
                          se3.Pose(init_pose.q[None], init_pose.t[None]),
                          dense, **kw)

@@ -1,13 +1,16 @@
 """Device voxel-Gaussian grids and the dilated dense correspondence index.
 
-Port of veloslam_tpu/registration/voxel.py (grids, the dilated dense
-index, the binary-search lookups).  Scans and maps are fixed-capacity
-tables of voxel Gaussians (count / mean / covariance per occupied voxel)
-sorted by packed int32 key, built with a stable sort + segment sums; F
-scans build F stacked grids in one pass.  Correspondences come from a
-dense (256, 256, 32) table pre-dilated over each cell's face neighbours
-(one kernel gather per point), or, for stacked per-scan targets, from
-seven batched binary searches (`lookup_nearest`).
+Port of veloslam_tpu/registration/voxel.py (grids, the dense and
+dilated dense indexes, the binary-search lookups).  Scans and maps are
+fixed-capacity tables of voxel Gaussians (count / mean / covariance per
+occupied voxel) sorted by packed int32 key, built with a stable sort +
+segment sums; F scans build F stacked grids in one pass.
+Correspondences come from a dense (256, 256, 32) table pre-dilated over
+each cell's face neighbours (one kernel gather per point), from the plain
+dense table with the nearest mean among a point's own cell and its six
+face neighbours (`lookup_nearest_dense`: seven kernel gathers per point),
+or, for stacked per-scan targets, from seven batched binary searches
+(`lookup_nearest`).
 
 Torch differs from JAX in a few ways this module handles explicitly:
 sorts are `stable=True` where JAX's were stable; writes JAX dropped under
@@ -287,6 +290,48 @@ def build_dense_index(grid: VoxelGrid, *, shape=(256, 256, 32),
                        device=g.device)
     table.scatter_(0, flat.long(), rows)
     return DenseIndex(table=table[:-1].reshape(X, Y, Z), lo=lo)
+
+
+def lookup_nearest_dense(grid: VoxelGrid, dense: DenseIndex, pts, mask,
+                         usable, bits: int = 10,
+                         approx_centers: bool = False) -> torch.Tensor:
+    """Row of the nearest usable voxel Gaussian among each point's own
+    cell and its 6 face neighbours (−1 if none), through the dense index:
+    the 7·P table reads are one kernel gather, then the squared distance
+    to each candidate's mean (or, with `approx_centers`, its voxel
+    centre) and the first minimum wins, as jnp.argmin; the winner is
+    taken by a 7-way select, as in the JAX original.  pts (P, 3), mask
+    and the result (P,)."""
+    half = 1 << (bits - 1)
+    g = (torch.floor((pts - grid.origin) / grid.voxel_size).to(torch.int32)
+         + half - dense.lo)                                    # (P, 3)
+    X, Y, Z = dense.table.shape
+    # Python-int offsets (a tensor of them would be a host-to-device copy).
+    offsets = ((0, 0, 0), (0, 0, 1), (0, 0, -1), (0, 1, 0), (0, -1, 0),
+               (1, 0, 0), (-1, 0, 0))
+    cand = torch.stack([torch.stack([g[:, 0] + dx, g[:, 1] + dy,
+                                     g[:, 2] + dz], dim=-1)
+                        for dx, dy, dz in offsets])            # (7, P, 3)
+    inside = _in_box(cand, (X, Y, Z)) & mask[None, :]
+    flat = ((torch.clamp(cand[..., 0], 0, X - 1) * Y
+             + torch.clamp(cand[..., 1], 0, Y - 1)) * Z
+            + torch.clamp(cand[..., 2], 0, Z - 1))             # (7, P)
+    idx7 = gather_i32(dense.table.reshape(-1),
+                      flat.reshape(-1)).reshape(flat.shape)
+    safe = torch.clamp(idx7, min=0).long()
+    ok7 = inside & (idx7 >= 0) & usable[safe]
+    if approx_centers:
+        ref = ((cand + dense.lo - half).to(torch.float32) + 0.5) \
+            * grid.voxel_size + grid.origin
+    else:
+        ref = grid.mean[safe]                                  # (7, P, 3)
+    d = pts[None] - ref
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    d2 = torch.where(ok7, d2, float("inf"))
+    best = torch.argmin(d2, dim=0)                             # (P,)
+    sel = best[None, :] == torch.arange(7, device=best.device)[:, None]
+    idx = torch.sum(torch.where(sel, idx7, 0), dim=0, dtype=torch.int32)
+    return torch.where(ok7.any(dim=0), idx, -1)
 
 
 def window_coverage(grid: VoxelGrid, usable, lo, shape,

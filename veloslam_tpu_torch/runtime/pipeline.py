@@ -1,60 +1,88 @@
-"""The user-facing SLAM pipeline, batched offline path: pcap + INS log →
-device full SLAM → landmarks, graph solve, tiled map, corrected
-trajectory.
+"""The user-facing SLAM pipeline: pcap + INS log → trajectory, keyframe
+pose graph with loop closures and landmarks, tiled map.
 
-Port of veloslam_tpu/runtime/pipeline.py::SlamPipeline's batched path:
+Port of veloslam_tpu/runtime/pipeline.py::SlamPipeline, two offline
+paths:
 
-    run_offline_batched(pcap, ins)   read the pcap, ground the packet
-                                     times to GPS from its position
-                                     packets, stream every batch through
-                                     runtime.fullslam.FullSlam on the
-                                     device, queue the end-of-stream sweep
-                                     (closures, pose graph, trajectory
-                                     correction), read it back once and
-                                     mirror it into the host graph;
-    finalize()                       post landmarks from every keyframe
-                                     scan, the landmark-Schur graph solve
-                                     with an outlier trim and one re-solve,
-                                     the tiled map rebuilt at the solved
-                                     poses, the per-frame trajectory
-                                     corrected by each keyframe's motion.
+    run_offline(pcap, ins)           the per-frame loop (slam_run's
+                                     default mode): each packet batch is
+                                     decoded, motion-compensated and
+                                     assembled into frames on the device;
+                                     per completed frame the host
+                                     localizes it against the map ROI
+                                     (GICP on the device), integrates it
+                                     into the tiled map, adds keyframes,
+                                     and every `keyframes_per_closure_
+                                     sweep` keyframes verifies closure
+                                     candidates, solves the graph and
+                                     downdates the moved keyframes' map
+                                     contributions; frames go to the
+                                     FrameStore with their pcap offsets;
+    run_offline_batched(pcap, ins)   full SLAM at bulk-replay rate: every
+                                     batch through runtime.fullslam.
+                                     FullSlam on the device, the end-of-
+                                     stream sweep (closures, pose graph,
+                                     trajectory correction) queued before
+                                     one readback, mirrored into the host
+                                     graph;
+    finalize()                       a last host closure sweep (per-frame
+                                     runs only), post landmarks from every
+                                     keyframe scan, the landmark-Schur
+                                     graph solve with an outlier trim and
+                                     one re-solve, the tiled map rebuilt
+                                     at the solved poses, the per-frame
+                                     trajectory corrected by each
+                                     keyframe's motion.
 
-The graph solves and the map's voxelization run on the pipeline's device
-(`device`, "cuda" unless the caller asks for "cpu"); the landmark
-association and the map's tile merge are host numpy, as in the JAX
-package.  Stage names are the JAX package's: the card's work is queued
-asynchronously, so "device_finalize_queue" is the sweep's enqueue time
-and "device_sweep_readback" its execution and transfer.
+The device work runs on the pipeline's device (`device`, "cuda" unless
+the caller asks for "cpu"); the per-frame pose bookkeeping, the ROI
+assembly, the closure proposal and accept decision, the landmark
+association and the map's tile merge are host work, as in the JAX
+package (the small pose math in float32 torch on the CPU).  Stage names
+are the JAX package's; the card's work is queued asynchronously, so a
+stage's time is its enqueue time unless the timers synchronize.
 
-Not ported yet (ROADMAP.md slice 3): the per-frame path (`run_offline`,
-`process_packets`, FrameStore), `run_online`, the host closure sweep,
-`update_map_incremental` and the checkpoints.  The JAX package's
-`warmup_batched` and host-solve placement are TPU workarounds the port
-does not need.
+Not ported yet (ROADMAP.md): `run_online` and the position-packet
+handler of live mode; the "d2d" and "ndt" registration methods; the
+batched path's binary-search lookup (`use_dense_index=False`).  The JAX
+package's `warmup*` and host-solve placement are TPU workarounds the
+port does not need.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import warnings
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from veloslam_tpu_torch import constants as C
 from veloslam_tpu_torch.config import SlamConfig
 from veloslam_tpu_torch.core import se3, timesync
-from veloslam_tpu_torch.core.timeline import PoseTrack, interpolate_poses_np
+from veloslam_tpu_torch.core.timeline import (PoseTrack, interpolate_poses,
+                                              interpolate_poses_np)
 from veloslam_tpu_torch.decode import calibration as calib_mod
-from veloslam_tpu_torch.decode.decode import DeviceCalib
+from veloslam_tpu_torch.decode.decode import (DeviceCalib,
+                                              apply_dual_return_filter,
+                                              compensate, decode_packets)
+from veloslam_tpu_torch.decode.frames import AssemblyCarry, assemble_frames
 from veloslam_tpu_torch.graph import landmark_assoc as la
-from veloslam_tpu_torch.graph import pcg
+from veloslam_tpu_torch.graph import loopclosure, pcg
+from veloslam_tpu_torch.graph import scancontext as sc_mod
 from veloslam_tpu_torch.graph.posegraph import GraphArrays, PoseGraph
 from veloslam_tpu_torch.io import packets as pk
-from veloslam_tpu_torch.io.pcap import read_lidar_packets, read_position_packets
+from veloslam_tpu_torch.io.pcap import (PcapReader, read_lidar_packets,
+                                        read_position_packets)
 from veloslam_tpu_torch.map.voxelmap import VoxelMap
+from veloslam_tpu_torch.registration import gicp
+from veloslam_tpu_torch.registration import voxel as vx
+from veloslam_tpu_torch.runtime.framestore import FrameStore
 from veloslam_tpu_torch.runtime.fullslam import FullSlam
+from veloslam_tpu_torch.runtime.odometry import packets_per_second
 from veloslam_tpu_torch.utils.profiling import StageTimers
 
 
@@ -106,6 +134,33 @@ class FrameResult:
     registered: bool
 
 
+class FrameRegistration(NamedTuple):
+    """One frame's scan-to-map registration, read back to the host."""
+
+    pose: se3.Pose          # CPU float32 tensors (4,), (3,)
+    n_matched: int
+    mean_error: float
+
+
+def _host_pose(q, t) -> se3.Pose:
+    """A pose as CPU float32 tensors (the per-frame pose bookkeeping is
+    float32 host math, as the JAX package's jnp on its host arrays)."""
+    return se3.Pose(torch.as_tensor(np.asarray(q, np.float32)),
+                    torch.as_tensor(np.asarray(t, np.float32)))
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy().copy()
+
+
+def _stacked(target: gicp.PlaneGrid) -> gicp.PlaneGrid:
+    """One target as F = 1 stacked targets (the binary-search lookup)."""
+    return gicp.PlaneGrid(grid=vx.VoxelGrid(*(x[None] for x in target.grid)),
+                          normal=target.normal[None],
+                          usable=target.usable[None],
+                          rows=target.rows[None])
+
+
 class SlamPipeline:
     def __init__(self, config: Optional[SlamConfig] = None,
                  spill_dir: Optional[str] = None, device="cuda"):
@@ -116,13 +171,6 @@ class SlamPipeline:
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "run on the CPU (the kernels' plain versions)")
         self.cfg = config or SlamConfig()
-        if not self.cfg.registration.use_dense_index:
-            raise ValueError(
-                "registration.use_dense_index=False selects the binary-"
-                "search correspondence lookup (StreamingOdometry's "
-                "use_dense=False path in the JAX package), which the port "
-                "does not have yet (ROADMAP slice 3a, item c); the port "
-                "registers through the dilated dense index only")
         sc = self.cfg.sensor
         self.calib = (calib_mod.from_xml(sc.calibration_path)
                       if sc.calibration_path
@@ -132,9 +180,18 @@ class SlamPipeline:
         self.track = PoseTrack()                 # INS prior track
         self.map = VoxelMap(self.cfg.map, spill_dir=spill_dir,
                             device=self.device)
+        self.frames = FrameStore(self.cfg.pipeline.frame_cache_capacity,
+                                 spill_dir=spill_dir)
         self.graph = PoseGraph(max_poses=self.cfg.graph.max_keyframes)
         self.keyframe_scans: List[Tuple[np.ndarray, np.ndarray]] = []
+        self.keyframe_descs: List[np.ndarray] = []   # scan-context (R, S)
         self.keyframe_times: List[int] = []
+        # Pose each keyframe's scan was integrated into the map with, and
+        # how ("stream": per-frame integrate_points; "batch":
+        # integrate_scans_batch): a downdate replays the same path at
+        # that pose, so the subtraction is the exact inverse.
+        self._kf_map_pose: List[Tuple[np.ndarray, np.ndarray]] = []
+        self._kf_integrated_via: List[str] = []
         # Keyframe pose at creation (immutable): the per-frame trajectory
         # was recorded against these; finalize() corrects it by the total
         # keyframe motion since creation.
@@ -142,6 +199,18 @@ class SlamPipeline:
         self.trajectory: List[FrameResult] = []
         self.timers = StageTimers()
         self.closures: List[Tuple[int, int]] = []
+        self._carry = AssemblyCarry.init(sc.n_lasers,
+                                         sc.max_firings_per_frame,
+                                         device=self.device)
+        self._open_start_abs: Optional[float] = None
+        # pcap offset of the packet at or before the open frame's start
+        self._open_frame_offset: Optional[int] = None
+        self._gps_base: Optional[int] = None   # grounded HDL hour base
+        self.frames.redecoder = self._redecode_frame
+        self._last_ins: Optional[se3.Pose] = None
+        self._last_est: Optional[se3.Pose] = None
+        self._kf_count_at_last_close = 0
+        self._device_closed = False
         self._map_deferred = False
         self._landmarks_added = False
         self._ring_full = False
@@ -206,8 +275,211 @@ class SlamPipeline:
         gps = pk.decode_lidar_packets_np(pkts)["gps_us"]
         resolved = timesync.resolve_hour_stamps(gps, base,
                                                 ref_us=int(rec_times[0]))
+        # The hour base including the ref_us hour shift, so re-decodes
+        # reproduce the same stamps.
+        self._gps_base = int(resolved[0]) - int(gps[0])
         h["ground_correction_us"] = int(resolved[0] - rec_times[0])
         return resolved
+
+    # --- the per-frame offline run: ingest -----------------------------------
+
+    def _decode_batch(self, pkts: np.ndarray, times_us: np.ndarray):
+        """Decode + dual-return filter + INS compensation of one batch on
+        the device.  Returns (dec, xyz_world, rel_s, anchor_us)."""
+        sc = self.cfg.sensor
+        pc = self.cfg.pipeline
+        dev = self.device
+        anchor = int(times_us[0])
+        rel = torch.as_tensor(((times_us - anchor) * 1e-6).astype(np.float32),
+                              device=dev)
+        with self.timers.stage("decode"):
+            dec = decode_packets(torch.as_tensor(pkts, device=dev),
+                                 self.dcalib, model=sc.model,
+                                 crop_region=sc.crop_region,
+                                 crop_inside=sc.crop_inside,
+                                 points_skip=pc.points_skip)
+            if sc.dual_return_filter is not None:
+                dec = apply_dual_return_filter(dec, sc.dual_return_filter)
+        if len(self.track) > 0:
+            with self.timers.stage("compensate"):
+                w = self.track.window(int(times_us[0]), int(times_us[-1]),
+                                      anchor_us=anchor)
+                xyz_w, _ = compensate(
+                    dec, rel, *(torch.as_tensor(w[k], device=dev)
+                                for k in ("rel_s", "q", "t", "v")),
+                    per_packet=(pc.compensation == "per_packet"))
+        else:
+            xyz_w = dec.xyz
+        return dec, xyz_w, rel, anchor
+
+    def _assemble(self, pkts, times_us, carry, open_abs):
+        """Decode a batch and assemble its frames from `carry` (the open
+        frame started at `open_abs` µs, None before the stream's first
+        frame).  Returns (frames as numpy dicts, their start times in the
+        batch's base (float32), the new carry, the open frame's start in
+        the batch's base, the batch anchor µs): two host reads."""
+        sc = self.cfg.sensor
+        dec, xyz_w, rel, anchor = self._decode_batch(pkts, times_us)
+        # A fill, not a copy from host memory (which would synchronize).
+        carry_start = torch.full(
+            (), 0.0 if open_abs is None else (open_abs - anchor) * 1e-6,
+            dtype=torch.float32, device=self.device)
+        with self.timers.stage("assemble"):
+            fb, n_done, starts, carry, open_start = assemble_frames(
+                dec, xyz_w, rel, carry, carry_start, model=sc.model,
+                n_beams=sc.n_lasers, max_firings=sc.max_firings_per_frame)
+            head = torch.cat([n_done.to(torch.float32)[None], starts,
+                              open_start[None]]).cpu().numpy()
+        n = int(head[0])
+        return (self._frame_dicts(fb, n), head[1:1 + n], carry,
+                head[-1], anchor)
+
+    @staticmethod
+    def _frame_dicts(fb, n: int) -> List[Dict]:
+        """The first n frame slots as numpy frame dicts (xyz, mask,
+        intensity, rel_s, azimuth), read back in one transfer."""
+        if n == 0:
+            return []
+        S, L, F = fb.mask.shape
+        parts = (fb.xyz[:n].reshape(n, -1), fb.mask[:n].reshape(n, -1),
+                 fb.intensity[:n].reshape(n, -1), fb.rel_s[:n].reshape(n, -1),
+                 fb.azimuth[:n].reshape(n, -1))
+        host = torch.cat([x.to(torch.float32) for x in parts],
+                         1).cpu().numpy()
+        LF = L * F
+        out = []
+        for k in range(n):
+            row = host[k]
+            out.append({
+                "xyz": row[:3 * LF].reshape(L, F, 3),
+                "mask": row[3 * LF:4 * LF].reshape(L, F) > 0.5,
+                "intensity": row[4 * LF:5 * LF].reshape(L, F),
+                "rel_s": row[5 * LF:6 * LF].reshape(L, F),
+                "azimuth": row[6 * LF:7 * LF].reshape(L, F),
+            })
+        return out
+
+    def process_packets(self, pkts: np.ndarray, times_us: np.ndarray,
+                        offsets: Optional[np.ndarray] = None,
+                        pcap_path: Optional[str] = None) -> int:
+        """Feed a batch of packets; returns frames completed.
+
+        `offsets`/`pcap_path`: per-packet pcap byte offsets; when given,
+        each completed frame's FrameStore entry records the offset of the
+        packet at or before its start, so its payload can be re-decoded."""
+        frames, starts, self._carry, open_start, anchor = self._assemble(
+            pkts, times_us, self._carry, self._open_start_abs)
+        rel_np = (times_us - anchor).astype(np.float64) * 1e-6
+        for k, frame in enumerate(frames):
+            start_us = int(anchor + float(starts[k]) * 1e6)
+            source = None
+            if offsets is not None and pcap_path is not None:
+                if k == 0 and self._open_frame_offset is not None:
+                    off = self._open_frame_offset
+                else:
+                    i = max(int(np.searchsorted(rel_np, starts[k],
+                                                side="right")) - 1, 0)
+                    off = int(offsets[i])
+                source = (pcap_path, off)
+            with self.timers.stage("frame"):
+                self._handle_frame(frame, start_us, source=source)
+        if offsets is not None and (frames
+                                    or self._open_frame_offset is None):
+            # The open frame began within this batch (a wrap completed the
+            # previous frame here) or this is the stream start; otherwise
+            # its first packet lives in an earlier batch and the recorded
+            # offset stands.
+            i = max(int(np.searchsorted(rel_np, float(open_start),
+                                        side="right")) - 1, 0)
+            self._open_frame_offset = int(offsets[i])
+        self._open_start_abs = anchor + float(open_start) * 1e6
+        return len(frames)
+
+    def _redecode_frame(self, source, start_us: int) -> Optional[Dict]:
+        """Re-decode ONE frame's payload from its pcap byte offset: seek,
+        decode forward until the frame whose start matches, return it.
+        Uses the live INS track for motion compensation, so a resumed
+        session reproduces the original frame; never touches the live
+        assembly carry."""
+        pcap_path, offset = source
+        sc = self.cfg.sensor
+        B = self.cfg.pipeline.packets_per_batch
+        per_rev = packets_per_second(sc.model) / (sc.rpm / 60.0)
+        need = int(per_rev * 2.5) + 64
+        pkts_l, times_l = [], []
+        with PcapReader(pcap_path) as r:
+            r.seek(int(offset))
+            for payload, t_us, _ in r:
+                if len(payload) != C.HDL_PACKET_BYTES:
+                    continue
+                pkts_l.append(payload)
+                times_l.append(t_us)
+                if len(pkts_l) >= need:
+                    break
+        if not pkts_l:
+            return None
+        arr = np.frombuffer(b"".join(pkts_l), np.uint8).reshape(
+            len(pkts_l), C.HDL_PACKET_BYTES)
+        times = np.asarray(times_l, np.int64)
+        if self._gps_base is not None:
+            gps = pk.decode_lidar_packets_np(arr)["gps_us"]
+            times = timesync.resolve_hour_stamps(gps, self._gps_base,
+                                                 ref_us=int(times[0]))
+        tail = len(arr) % B
+        if tail:
+            arr = np.concatenate(
+                [arr, pk.idle_lidar_packets(arr[-1], B - tail)])
+            times = np.concatenate(
+                [times, np.full(B - tail, times[-1], np.int64)])
+        # Candidates within 500 µs of the recorded start; the fresh
+        # carry's slot 0 may be a leading fragment of the previous
+        # revolution with a nearby start, so the fullest candidate wins.
+        carry = AssemblyCarry.init(sc.n_lasers, sc.max_firings_per_frame,
+                                   device=self.device)
+        open_abs: Optional[float] = None
+        candidates = []
+        for s in range(0, len(arr), B):
+            frames, starts, carry, open_start, anchor = self._assemble(
+                arr[s:s + B], times[s:s + B], carry, open_abs)
+            passed = False
+            for k, frame in enumerate(frames):
+                f_start = anchor + float(starts[k]) * 1e6
+                if abs(f_start - start_us) < 500.0:
+                    candidates.append(frame)
+                elif f_start > start_us:
+                    passed = True
+            if passed:
+                break
+            open_abs = anchor + float(open_start) * 1e6
+        if not candidates:
+            return None
+        return max(candidates, key=lambda f: int(f["mask"].sum()))
+
+    def run_offline(self, pcap_path: str, ins_path: Optional[str] = None,
+                    max_packets: Optional[int] = None) -> Dict:
+        """Drive the whole pcap through the per-frame pipeline, in
+        `packets_per_batch` batches (the last padded with idle packets).
+        HDL timestamps are GPS-grounded from the pcap's position packets
+        when present."""
+        if ins_path:
+            self.feed_ins_txt(ins_path)
+        pkts, times, offs = read_lidar_packets(pcap_path, max_packets)
+        times = self._ground_offline_times(pcap_path, pkts, times)
+        B = self.cfg.pipeline.packets_per_batch
+        tail = len(pkts) % B
+        if tail:
+            # Idle packets (no returns, frozen azimuth) so the frames at
+            # the end of the recording are not dropped.
+            pkts = np.concatenate(
+                [pkts, pk.idle_lidar_packets(pkts[-1], B - tail)])
+            times = np.concatenate(
+                [times, np.full(B - tail, times[-1], np.int64)])
+            offs = np.concatenate(
+                [offs, np.full(B - tail, offs[-1], np.int64)])
+        for s in range(0, len(pkts), B):
+            self.process_packets(pkts[s:s + B], times[s:s + B],
+                                 offsets=offs[s:s + B], pcap_path=pcap_path)
+        return self.results()
 
     # --- the batched offline run --------------------------------------------
 
@@ -223,6 +495,13 @@ class SlamPipeline:
         correction) is queued before the one readback.  The host then
         mirrors the solved graph and builds the tiled map (left to
         `finalize()` with `defer_map`).  Frame payloads are not kept."""
+        if not self.cfg.registration.use_dense_index:
+            raise ValueError(
+                "registration.use_dense_index=False selects the binary-"
+                "search correspondence lookup for the batched path "
+                "(StreamingOdometry's use_dense=False in the JAX package), "
+                "which the port does not have yet (ROADMAP slice 3a, item "
+                "c); run_offline (the per-frame path) serves it")
         if ins_path:
             self.feed_ins_txt(ins_path)
         pkts, times, _ = read_lidar_packets(pcap_path, max_packets)
@@ -315,6 +594,8 @@ class SlamPipeline:
             self.keyframe_scans.append((host["kf_pts"][k],
                                         host["kf_msk"][k]))
             self.keyframe_times.append(int(kf_times[k]))
+            self._kf_map_pose.append((sq, st3))
+            self._kf_integrated_via.append("batch")
             self._kf_pose_at_creation.append((sq.copy(), st3.copy()))
             if k > 0:
                 self.graph.add_edge(k - 1, k, host["rel_q"][k - 1],
@@ -327,6 +608,8 @@ class SlamPipeline:
                                     host["meas_t"][c],
                                     info=gc.closure_edge_info)
                 self.closures.append((i, j))
+        self._kf_count_at_last_close = n_kf
+        self._device_closed = True
         # The tiled map is built from the keyframe scans at the solved
         # poses (the rolling device grid was odometry's working set).
         # With `defer_map` the build is left to finalize(), which rebuilds
@@ -378,6 +661,301 @@ class SlamPipeline:
         keep everything; a multi-device session returns its own)."""
         return None
 
+    # --- the per-frame SLAM loop ------------------------------------------
+
+    def _ins_pose_at(self, t_us: int) -> Optional[se3.Pose]:
+        """The INS pose at t_us (host float32), None without a track."""
+        if len(self.track) == 0:
+            return None
+        w = self.track.window(t_us, t_us + 1, anchor_us=t_us)
+        p = interpolate_poses(*(torch.as_tensor(w[k]) for k in
+                                ("rel_s", "q", "t", "v")),
+                              torch.zeros(1, dtype=torch.float32))
+        return se3.Pose(p.q[0], p.t[0])
+
+    def _subsample(self, frame: Dict) -> Tuple[np.ndarray, np.ndarray]:
+        """A frame's valid points, strided down to at most max_points,
+        padded to max_points with their mask."""
+        pts = frame["xyz"][frame["mask"]]
+        P = self.cfg.registration.max_points
+        if len(pts) > P:
+            stride = int(np.ceil(len(pts) / P))
+            pts = pts[::stride][:P]
+        out = np.zeros((P, 3), np.float32)
+        msk = np.zeros(P, bool)
+        out[:len(pts)] = pts
+        msk[:len(pts)] = True
+        return out, msk
+
+    def _register_frame(self, pts: np.ndarray, mask: np.ndarray,
+                        T_prior: se3.Pose) -> Optional[FrameRegistration]:
+        """Scan-to-map registration against the ROI around the prior, on
+        the device: the exact nearest-mean correspondence of seven cells
+        through the ROI's dense index (or, with use_dense_index=False, the
+        binary-search lookup), re-associated every `reassociate_every`
+        iterations.  Returns the result read back, or None when the map
+        holds nothing around the prior yet.  A multi-device session
+        overrides it to register against its sharded map."""
+        rc = self.cfg.registration
+        if rc.method != "gicp":
+            raise ValueError(
+                f"registration.method={rc.method!r}: the port registers "
+                f"with point-to-plane GICP only; the D2D and NDT methods "
+                f"are not ported yet (ROADMAP slice 3a, item g)")
+        prior_t = T_prior.t.numpy()
+        roi = self.map.roi_grid(float(prior_t[0]), float(prior_t[1]))
+        if roi is None:
+            return None
+        dev = self.device
+        with self.timers.stage("register"):
+            target = gicp.plane_grid_from(
+                roi, min_points=rc.min_points_per_voxel,
+                min_planarity=rc.min_planarity)
+            if rc.use_dense_index:
+                dense = vx.build_dense_index(roi)
+            else:
+                dense, target = None, _stacked(target)
+            # Points and prior in one upload.
+            P = len(pts)
+            buf = torch.as_tensor(np.concatenate(
+                [pts.reshape(-1), T_prior.q.numpy(), T_prior.t.numpy()]),
+                device=dev)
+            res = gicp.register(
+                buf[:3 * P].reshape(P, 3),
+                torch.as_tensor(mask, device=dev), target,
+                se3.Pose(buf[3 * P:3 * P + 4], buf[3 * P + 4:]), dense,
+                iterations=rc.max_iterations, damping=rc.damping,
+                huber_delta=rc.huber_delta,
+                max_dist=rc.max_correspondence_dist,
+                reassociate_every=rc.reassociate_every)
+            out = torch.cat([res.pose.q, res.pose.t,
+                             res.n_matched.to(torch.float32)[None],
+                             res.mean_error[None]]).cpu()
+        return FrameRegistration(pose=se3.Pose(out[:4], out[4:7]),
+                                 n_matched=int(out[7]),
+                                 mean_error=float(out[8]))
+
+    def _handle_frame(self, frame: Dict, start_us: int,
+                      source: Optional[tuple] = None) -> None:
+        """Localize one frame against the map, integrate it, record it,
+        and maybe make it a keyframe.  Frames are compensated into the
+        INS world frame; registration takes them relative to the
+        frame-start INS pose, with the prior T_est_prev ∘ (T_ins_prev⁻¹ ∘
+        T_ins_cur)."""
+        rc = self.cfg.registration
+        ins = self._ins_pose_at(start_us)
+        if ins is not None:
+            pts_local_full = se3.apply(
+                se3.inverse(ins), torch.as_tensor(frame["xyz"])).numpy()
+        else:
+            pts_local_full = frame["xyz"]
+        pts, mask = self._subsample({"xyz": pts_local_full,
+                                     "mask": frame["mask"]})
+
+        # Prior: previous estimate composed with the INS relative motion.
+        if self._last_est is None:
+            T_prior = ins if ins is not None else se3.Pose.identity()
+        elif ins is not None and self._last_ins is not None:
+            rel = se3.compose(se3.inverse(self._last_ins), ins)
+            T_prior = se3.compose(self._last_est, rel)
+        else:
+            T_prior = self._last_est
+
+        registered = False
+        n_matched, mean_error = 0, float("nan")
+        T_est = T_prior
+        res = self._register_frame(pts, mask, T_prior)
+        if res is not None:
+            n_matched, mean_error = res.n_matched, res.mean_error
+            if n_matched > rc.min_matched_points and np.isfinite(mean_error):
+                T_est = res.pose
+                registered = True
+
+        # Integrate the corrected scan into the map.
+        pts_world = se3.apply(T_est, torch.as_tensor(pts)).numpy()
+        est_q, est_t = _np(T_est.q), _np(T_est.t)
+        with self.timers.stage("map_update"):
+            self._integrate_scan(pts_world, mask, est_t)
+
+        self.frames.add_frame(start_us, frame, carpose_q=est_q,
+                              carpose_t=est_t, source=source)
+        self.trajectory.append(FrameResult(
+            start_us=start_us, pose_q=est_q, pose_t=est_t,
+            n_points=int(mask.sum()), n_matched=n_matched,
+            mean_error=mean_error, registered=registered))
+        self._maybe_keyframe(T_est, pts, mask, start_us)
+        self._last_ins = ins
+        self._last_est = T_est
+
+    # --- keyframes + loop closure -------------------------------------------
+
+    def _maybe_keyframe(self, T_est: se3.Pose, pts: np.ndarray,
+                        mask: np.ndarray, start_us: int) -> None:
+        """A new keyframe once the estimate moved keyframe_translation_m or
+        turned keyframe_rotation_deg since the last one (float32, as the
+        JAX package decides it); every keyframes_per_closure_sweep
+        keyframes, a loop-closure sweep."""
+        gc = self.cfg.graph
+        g = self.graph
+        if g.n_poses > 0:
+            k = g.n_poses - 1
+            rel = se3.relative(_host_pose(g.q[k], g.t[k]), T_est)
+            dt = float(torch.linalg.vector_norm(rel.t))
+            dr = float(torch.linalg.vector_norm(se3.quat_log(rel.q)))
+            if dt < gc.keyframe_translation_m and \
+                    dr < np.deg2rad(gc.keyframe_rotation_deg):
+                return
+        est_q, est_t = _np(T_est.q), _np(T_est.t)
+        k = g.add_pose(est_q, est_t)
+        self.keyframe_scans.append((pts.copy(), mask.copy()))
+        if gc.use_scan_context:
+            dev = self.device
+            self.keyframe_descs.append(_np(sc_mod.scan_context(
+                torch.as_tensor(pts, device=dev),
+                torch.as_tensor(mask, device=dev))))
+        self.keyframe_times.append(start_us)
+        # The pose (and path) this keyframe's scan entered the map with,
+        # in _handle_frame just before: the downdate anchor.
+        self._kf_map_pose.append((est_q, est_t))
+        self._kf_integrated_via.append("stream")
+        self._kf_pose_at_creation.append((est_q.copy(), est_t.copy()))
+        if k > 0:
+            rel = se3.relative(_host_pose(g.q[k - 1], g.t[k - 1]), T_est)
+            g.add_edge(k - 1, k, _np(rel.q), _np(rel.t),
+                       info=gc.odom_edge_info)
+        if k - self._kf_count_at_last_close >= \
+                gc.keyframes_per_closure_sweep:
+            self._try_loop_closure()
+            self._kf_count_at_last_close = k
+
+    def _closure_candidates(self) -> List[Tuple[int, int, se3.Pose]]:
+        """Candidate (i, j, rel_prior) pairs from both proposal channels:
+        the position radius (prior from the graph poses) and scan-context
+        descriptors scored on the device (prior: the best shift's yaw,
+        zero translation, independent of the drifted estimates)."""
+        gc = self.cfg.graph
+        q, t = self.graph.poses()
+        seen = set(self.closures)
+        out: List[Tuple[int, int, se3.Pose]] = []
+        for i, j in loopclosure.find_candidates(
+                t, radius=gc.loop_closure_radius_m,
+                min_gap=gc.loop_closure_min_gap):
+            if (i, j) in seen:
+                continue
+            seen.add((i, j))
+            out.append((i, j, se3.relative(_host_pose(q[i], t[i]),
+                                           _host_pose(q[j], t[j]))))
+        if gc.use_scan_context and len(self.keyframe_descs) >= 2:
+            scores, shifts = sc_mod.descriptor_scores(torch.as_tensor(
+                np.stack(self.keyframe_descs), device=self.device))
+            host = torch.stack([scores, shifts.to(torch.float32)]
+                               ).cpu().numpy()
+            for i, j, _, shift in sc_mod.propose(
+                    host[0], host[1].astype(np.int32),
+                    n_valid=len(self.keyframe_descs),
+                    min_score=gc.sc_min_score,
+                    min_gap=gc.loop_closure_min_gap,
+                    exclude=seen):
+                seen.add((i, j))
+                yaw = float(sc_mod.relative_yaw(shift))
+                out.append((i, j, _host_pose(
+                    [np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)],
+                    np.zeros(3))))
+        return out[:gc.max_closure_candidates_per_sweep]
+
+    def _try_loop_closure(self) -> None:
+        """One closure sweep: the candidates verified together on the
+        device, accepted ones added as closure edges; after any acceptance
+        the graph solve and the incremental map downdate."""
+        rc = self.cfg.registration
+        gc = self.cfg.graph
+        new_p = self._closure_candidates()
+        new = [(i, j) for i, j, _ in new_p]
+        accepted = 0
+        if new:
+            dev = self.device
+
+            def stack(rows):
+                return torch.as_tensor(np.stack(rows), device=dev)
+
+            scans = self.keyframe_scans
+            pi = stack([scans[i][0] for i, _ in new])
+            mi = stack([scans[i][1] for i, _ in new])
+            pj = stack([scans[j][0] for _, j in new])
+            mj = stack([scans[j][1] for _, j in new])
+            rel_priors = se3.Pose(
+                torch.stack([p.q for _, _, p in new_p]).to(dev),
+                torch.stack([p.t for _, _, p in new_p]).to(dev))
+            with self.timers.stage("loop_verify"):
+                measures = loopclosure.verify_closures_batch(
+                    pi, mi, pj, mj, rel_priors,
+                    voxel_size=gc.verify_voxel_m,
+                    capacity=rc.scan_voxel_capacity)
+            for (i, j), meas in zip(new, measures):
+                if meas is None:
+                    continue
+                self.graph.add_edge(i, j, meas.q, meas.t,
+                                    info=gc.closure_edge_info)
+                self.closures.append((i, j))
+                accepted += 1
+        if accepted:
+            with self.timers.stage("graph_solve"):
+                self._solve_graph()
+            with self.timers.stage("map_downdate"):
+                self.update_map_incremental()
+
+    def update_map_incremental(self, move_threshold_m: float = 0.05
+                               ) -> int:
+        """Incremental voxel downdating: for each keyframe whose optimized
+        pose moved more than `move_threshold_m` (or turned) since its scan
+        was integrated, subtract the scan's voxel statistics at the old
+        pose and re-add them at the new one, through the path it entered
+        by (`_kf_integrated_via`), so the subtraction is the exact inverse
+        of the addition.  Non-keyframe frames stay as integrated.  Returns
+        the number of keyframes re-integrated."""
+        q, t = self.graph.poses()
+        moved_k = [
+            k for k in range(len(self.keyframe_scans))
+            if not (np.linalg.norm(t[k] - self._kf_map_pose[k][1])
+                    < move_threshold_m
+                    and abs(float(np.dot(q[k], self._kf_map_pose[k][0])))
+                    > 0.999995)]
+        if not moved_k:
+            return 0
+
+        def via(k):  # untracked keyframes default to the stream path
+            return (self._kf_integrated_via[k]
+                    if k < len(self._kf_integrated_via) else "stream")
+        stream_k = [k for k in moved_k if via(k) == "stream"]
+        batch_k = [k for k in moved_k if via(k) != "stream"]
+        # Stream-integrated scans: replay se3.apply + integrate_points at
+        # the old pose with sign −1, then re-add at the new pose.
+        for k in stream_k:
+            pts_k, msk_k = self.keyframe_scans[k]
+            old_q, old_t = self._kf_map_pose[k]
+            pw_old = se3.apply(_host_pose(old_q, old_t),
+                               torch.as_tensor(pts_k)).numpy()
+            self._integrate_scan(pw_old, msk_k, old_t, sign=-1.0)
+            pw_new = se3.apply(_host_pose(q[k], t[k]),
+                               torch.as_tensor(pts_k)).numpy()
+            self._integrate_scan(pw_new, msk_k, t[k])
+        if batch_k:
+            # One batched pass: every moved scan at its old pose (sign −1),
+            # then at its new pose.
+            pts = np.stack([self.keyframe_scans[k][0] for k in batch_k] * 2)
+            msk = np.stack([self.keyframe_scans[k][1] for k in batch_k] * 2)
+            qs = np.stack([self._kf_map_pose[k][0] for k in batch_k]
+                          + [q[k] for k in batch_k])
+            ts = np.stack([self._kf_map_pose[k][1] for k in batch_k]
+                          + [t[k] for k in batch_k])
+            signs = np.concatenate([-np.ones(len(batch_k)),
+                                    np.ones(len(batch_k))])
+            self.map.integrate_scans_batch(pts, msk, qs, ts, signs=signs,
+                                           tile_filter=self._tile_filter())
+        for k in moved_k:
+            self._kf_map_pose[k] = (q[k].copy(), t[k].copy())
+        return len(moved_k)
+
     def rebuild_map(self) -> None:
         """Re-integrate all keyframe scans at their optimized graph poses
         into a fresh map."""
@@ -390,6 +968,9 @@ class SlamPipeline:
                 np.stack([p for p, _ in self.keyframe_scans]),
                 np.stack([m for _, m in self.keyframe_scans]),
                 q[:K], t[:K], tile_filter=self._tile_filter())
+            for k in range(min(K, len(self._kf_map_pose))):
+                self._kf_map_pose[k] = (q[k].copy(), t[k].copy())
+                self._kf_integrated_via[k] = "batch"
         self.map = fresh
 
     def _correct_trajectory(self, old_q: np.ndarray, old_t: np.ndarray
@@ -437,12 +1018,14 @@ class SlamPipeline:
                 obs_info=gc.landmark_obs_info)
 
     def finalize(self) -> Dict:
-        """End-of-session pass after run_offline_batched (whose closure
-        sweep already ran on the device): landmark extraction and
-        association, the graph solve (Schur-eliminated landmarks when
-        present, an outlier trim and one re-solve), the map rebuild, the
-        per-frame trajectory correction."""
+        """End-of-session pass: a last loop-closure sweep (skipped after
+        run_offline_batched, whose sweep ran on the device), landmark
+        extraction and association, the graph solve (Schur-eliminated
+        landmarks when present, an outlier trim and one re-solve), the
+        map rebuild, the per-frame trajectory correction."""
         g = self.graph
+        if not self._device_closed:
+            self._try_loop_closure()
         if self.cfg.graph.use_landmarks and self.keyframe_scans:
             self.add_landmark_observations()
         has_closures = g.n_edges > max(g.n_poses - 1, 0)
@@ -505,3 +1088,24 @@ class SlamPipeline:
             "ins_health": dict(self.ins_health),
             "gps_health": dict(self.gps_health),
         }
+
+    # --- checkpoints --------------------------------------------------------
+
+    def save_checkpoint(self, dirname: str) -> None:
+        """Full-session checkpoint: frame meta (with every frame's payload
+        and pcap source), the INS track, the map and the graph, in the
+        JAX package's file formats."""
+        os.makedirs(dirname, exist_ok=True)
+        self.frames.save_meta(os.path.join(dirname, "frames_meta.npz"),
+                              frames_dir=os.path.join(dirname, "frames"))
+        self.track.save(os.path.join(dirname, "ins_track.npz"))
+        self.map.save(os.path.join(dirname, "map"))
+        self.graph.save(os.path.join(dirname, "graph.npz"))
+
+    def load_checkpoint(self, dirname: str) -> None:
+        self.frames.load_meta(os.path.join(dirname, "frames_meta.npz"),
+                              spill_dir=os.path.join(dirname, "frames"))
+        self.track = PoseTrack.load(os.path.join(dirname, "ins_track.npz"))
+        self.map = VoxelMap.load(os.path.join(dirname, "map"), self.cfg.map,
+                                 device=self.device)
+        self.graph = PoseGraph.load(os.path.join(dirname, "graph.npz"))
