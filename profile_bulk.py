@@ -86,7 +86,8 @@ def bulk_step(device):
     kw = dict(model="hdl32", reg_points=reg["reg_points"],
               reg_iterations=reg["reg_iterations"], max_frames_batch=96,
               reassociate_every=reg["reassociate_every"],
-              map_decay=reg["map_decay"])
+              map_decay=reg["map_decay"], use_dense=True,
+              sample_assembly=True)
 
     def step(state):
         return odo.odometry_step_batched(
@@ -95,7 +96,8 @@ def bulk_step(device):
 
     warm, _ = step(odo.init_state(device=device,
                                   map_capacity=reg["map_capacity"],
-                                  voxel_size=reg["voxel_size"]))
+                                  voxel_size=reg["voxel_size"],
+                                  sample_assembly=True))
     return lambda: step(warm)
 
 

@@ -67,17 +67,52 @@ def golden_config() -> dict:
     return {"model": "hdl32", "drives": [full, small, search]}
 
 
+def record(pipe, res, mid, seq, drive: dict) -> dict:
+    """A JAX per-frame run's results as the golden keeps them: times,
+    trajectory, registered flags, keyframes, the closures accepted during
+    the stream and in all, landmarks, per-tile map counts, 2-D ATE."""
+    from chip_smoke import map_tiles
+    from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
+    g = pipe.graph
+    truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
+                                  seq["ins_pos"])
+    t_rel = (res["times_us"] - seq["ins_t_us"][0]) * 1e-6
+    tiles, tile_counts = map_tiles(pipe)
+    return {
+        "n_frames": res["n_frames"], "times_us": res["times_us"],
+        "positions": res["positions"],
+        "quaternions": res["quaternions"],
+        "registered": np.asarray([f.registered for f in pipe.trajectory]),
+        "n_keyframes": res["n_keyframes"],
+        "keyframe_times_us": res["keyframe_times_us"],
+        "keyframe_positions": res["keyframe_positions"],
+        "closures_mid": np.asarray(mid, np.int64).reshape(-1, 2),
+        "closures": np.asarray(pipe.closures, np.int64).reshape(-1, 2),
+        "n_landmarks": res["n_landmarks"],
+        "n_landmark_obs": res["n_landmark_obs"],
+        "landmarks": g.l_pos[:g.n_landmarks],
+        "obs_kept": g.o_ok[:g.n_obs],
+        "map_patches": res["map_patches"],
+        "map_tiles": tiles, "map_tile_counts": tile_counts,
+        "ground_correction_us": res["gps_health"]["ground_correction_us"],
+        # 2-D ATE against the simulator's truth, as bench.py scores full
+        # SLAM; raw INS = the drift alone.
+        "ate": ate(res["positions"][:, :2], truth[:, :2],
+                   align=False)["rmse"],
+        "ate_raw_ins": float(np.sqrt(np.mean(
+            (drive["drift_rate"] * t_rel) ** 2))),
+    }
+
+
 def main():
     sys.path.insert(0, REPO)
     sys.path.insert(0, HERE)
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from chip_smoke import map_tiles
     from gen_torch_pipeline_golden import jax_slam_config, write_drive
     from veloslam_tpu.io import packets as pkmod
     from veloslam_tpu.io import simulate as sim
-    from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
     from veloslam_tpu.runtime.pipeline import SlamPipeline
 
     cfg = golden_config()
@@ -90,37 +125,7 @@ def main():
             pipe.run_offline(paths["pcap"], paths["ins"])
             mid = list(pipe.closures)
             res = pipe.finalize()
-        g = pipe.graph
-        truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
-                                      seq["ins_pos"])
-        t_rel = (res["times_us"] - seq["ins_t_us"][0]) * 1e-6
-        tiles, tile_counts = map_tiles(pipe)
-        r = {
-            "n_frames": res["n_frames"], "times_us": res["times_us"],
-            "positions": res["positions"],
-            "quaternions": res["quaternions"],
-            "registered": np.asarray([f.registered
-                                      for f in pipe.trajectory]),
-            "n_keyframes": res["n_keyframes"],
-            "keyframe_times_us": res["keyframe_times_us"],
-            "keyframe_positions": res["keyframe_positions"],
-            "closures_mid": np.asarray(mid, np.int64).reshape(-1, 2),
-            "closures": np.asarray(pipe.closures, np.int64).reshape(-1, 2),
-            "n_landmarks": res["n_landmarks"],
-            "n_landmark_obs": res["n_landmark_obs"],
-            "landmarks": g.l_pos[:g.n_landmarks],
-            "obs_kept": g.o_ok[:g.n_obs],
-            "map_patches": res["map_patches"],
-            "map_tiles": tiles, "map_tile_counts": tile_counts,
-            "ground_correction_us":
-                res["gps_health"]["ground_correction_us"],
-            # 2-D ATE against the simulator's truth, as bench.py scores
-            # full SLAM; raw INS = the drift alone.
-            "ate": ate(res["positions"][:, :2], truth[:, :2],
-                       align=False)["rmse"],
-            "ate_raw_ins": float(np.sqrt(np.mean(
-                (drive["drift_rate"] * t_rel) ** 2))),
-        }
+        r = record(pipe, res, mid, seq, drive)
         for k, v in r.items():
             out[f"{name}_{k}"] = v
         print(f"{name}: {r['n_frames']} frames "

@@ -108,6 +108,43 @@ def jax_slam_config(d: dict):
                       graph=GraphConfig(**tup))
 
 
+def record(pipe, res, seq, drive: dict) -> dict:
+    """A JAX batched-pipeline run's results as the golden keeps them:
+    times, trajectory, keyframes, closures, landmarks, map sizes, 2-D
+    ATE."""
+    from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
+    g = pipe.graph
+    truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
+                                  seq["ins_pos"])
+    t_rel = (res["times_us"] - seq["ins_t_us"][0]) * 1e-6
+    patches = [pipe.map._materialize(k, create=False)
+               for k in sorted(set(pipe.map._patches)
+                               | set(pipe.map._spilled))]
+    return {
+        "n_frames": res["n_frames"], "times_us": res["times_us"],
+        "positions": res["positions"],
+        "quaternions": res["quaternions"],
+        "n_keyframes": res["n_keyframes"],
+        "keyframe_times_us": res["keyframe_times_us"],
+        "keyframe_positions": res["keyframe_positions"],
+        "closures": np.asarray(pipe.closures, np.int64).reshape(-1, 2),
+        "n_landmarks": res["n_landmarks"],
+        "n_landmark_obs": res["n_landmark_obs"],
+        "landmarks": g.l_pos[:g.n_landmarks],
+        "obs_kept": g.o_ok[:g.n_obs],
+        "map_patches": res["map_patches"],
+        "map_voxels": sum(p.n_voxels for p in patches),
+        "map_count": sum(float(p.count.sum()) for p in patches),
+        "ground_correction_us": res["gps_health"]["ground_correction_us"],
+        # 2-D ATE against the simulator's truth, as bench.py scores the
+        # full-SLAM stage; raw INS = the drift alone.
+        "ate": ate(res["positions"][:, :2], truth[:, :2],
+                   align=False)["rmse"],
+        "ate_raw_ins": float(np.sqrt(np.mean(
+            (drive["drift_rate"] * t_rel) ** 2))),
+    }
+
+
 def main():
     sys.path.insert(0, REPO)
     import jax
@@ -115,7 +152,6 @@ def main():
 
     from veloslam_tpu.io import packets as pkmod
     from veloslam_tpu.io import simulate as sim
-    from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
     from veloslam_tpu.runtime.pipeline import SlamPipeline
 
     config = jax_slam_config
@@ -129,37 +165,7 @@ def main():
             pipe.run_offline_batched(paths["pcap"], paths["ins"],
                                      batch=drive["batch"], defer_map=True)
             res = pipe.finalize()
-        g = pipe.graph
-        truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
-                                      seq["ins_pos"])
-        t_rel = (res["times_us"] - seq["ins_t_us"][0]) * 1e-6
-        patches = [pipe.map._materialize(k, create=False)
-                   for k in sorted(set(pipe.map._patches)
-                                   | set(pipe.map._spilled))]
-        r = {
-            "n_frames": res["n_frames"], "times_us": res["times_us"],
-            "positions": res["positions"],
-            "quaternions": res["quaternions"],
-            "n_keyframes": res["n_keyframes"],
-            "keyframe_times_us": res["keyframe_times_us"],
-            "keyframe_positions": res["keyframe_positions"],
-            "closures": np.asarray(pipe.closures, np.int64).reshape(-1, 2),
-            "n_landmarks": res["n_landmarks"],
-            "n_landmark_obs": res["n_landmark_obs"],
-            "landmarks": g.l_pos[:g.n_landmarks],
-            "obs_kept": g.o_ok[:g.n_obs],
-            "map_patches": res["map_patches"],
-            "map_voxels": sum(p.n_voxels for p in patches),
-            "map_count": sum(float(p.count.sum()) for p in patches),
-            "ground_correction_us":
-                res["gps_health"]["ground_correction_us"],
-            # 2-D ATE against the simulator's truth, as bench.py scores
-            # the full-SLAM stage; raw INS = the drift alone.
-            "ate": ate(res["positions"][:, :2], truth[:, :2],
-                       align=False)["rmse"],
-            "ate_raw_ins": float(np.sqrt(np.mean(
-                (drive["drift_rate"] * t_rel) ** 2))),
-        }
+        r = record(pipe, res, seq, drive)
         for k, v in r.items():
             out[f"{name}_{k}"] = v
         print(f"{name}: {r['n_frames']} frames, {r['n_keyframes']} "

@@ -1,8 +1,9 @@
 """The port on a CUDA card: the hand-written normal-equations, gather and
 chain kernels against their plain versions, the wrappers' input checks,
-the odometry slice, frame assembly, the dense nearest-mean lookup, the
-per-frame pipeline and the graph solves (dense and PCG) on the card
-against the same on the CPU.
+the odometry slice (batched, fused and chained), frame assembly, the
+dense nearest-mean lookup and the shared-target binary search, D2D and
+NDT registration, the per-frame pipeline and the graph solves (dense and
+PCG) on the card against the same on the CPU.
 Marked `cuda`; each test skips where
 torch.cuda.is_available() is false.  On a machine with a card:
 
@@ -133,7 +134,8 @@ def test_odometry_on_card_matches_cpu(card):
     out = {}
     for dev in ("cpu", card):
         o = odo.StreamingOdometry(DeviceCalib.from_host(cal.hdl32(),
-                                                        device=dev), **kw)
+                                                        device=dev),
+                                  batched=True, use_dense=True, **kw)
         before = ne.LAUNCHES
         out[str(dev)] = o.run(seq["packets"], seq["pkt_times_us"], track,
                               batch=256)
@@ -207,7 +209,7 @@ def test_small_fullslam_on_card_matches_jax_golden(card):
         seed=drive["seed"], world=sim.World.demo(**drive["world"]),
         trajectory=sim.circle_trajectory(**drive["circle"]))
     eng = FullSlam(DeviceCalib.from_host(cal.hdl32(), device=card),
-                   model=cfg["model"], **drive["engine"])
+                   model=cfg["model"], use_dense=True, **drive["engine"])
     before = (ne.LAUNCHES, dict(ga.LAUNCHES))
     eng.run_device(seq["packets"], seq["pkt_times_us"],
                    sim.truth_track(seq, drift_rate=drive["drift_rate"]),
@@ -601,3 +603,124 @@ def test_small_per_frame_pipeline_on_card_matches_jax_golden(card):
         assert os.path.isdir(tmp)
     assert all(launches[k] > 0 for k in cs.REG_KERNELS), launches
     assert launches["chain_factor"] == launches["chain_solve"] == 0
+
+
+def test_shared_target_binary_search_on_card_equals_cpu(card):
+    """gicp.associate against one shared target with no index (the fused
+    and `--fast` odometry): all F·P points in one binary-search lookup
+    (one gather_i32 launch) and one row gather, on the card the CPU's
+    planes and hits exactly, from the same target (built on the card,
+    copied to the CPU), at a frame slot pair of 16384 points against a
+    32768-row map."""
+    from veloslam_tpu_torch.registration import gicp
+    from veloslam_tpu_torch.registration import voxel as vx
+    rng = np.random.default_rng(4)
+    centers = rng.uniform(-40, 40, (400, 3))
+    pts = (centers[rng.integers(0, 400, 60000)]
+           + rng.normal(0, 0.5, (60000, 3))).astype(np.float32)
+    q = (pts[:2 * 16384] + rng.normal(0, 0.3, (2 * 16384, 3))
+         ).astype(np.float32).reshape(2, 16384, 3)
+    m = rng.random((2, 16384)) < 0.95
+    g = vx.build_grid(torch.as_tensor(pts, device=card),
+                      torch.ones(60000, dtype=torch.bool, device=card),
+                      torch.zeros(3, device=card),
+                      torch.tensor(1.0, device=card), capacity=32768)
+    on_card = gicp.plane_grid_from(g)
+    out = {}
+    for dev in ("cpu", card):
+        target = gicp.PlaneGrid(
+            grid=vx.VoxelGrid(*(x.to(dev) for x in on_card.grid)),
+            normal=on_card.normal.to(dev), usable=on_card.usable.to(dev),
+            rows=on_card.rows.to(dev))
+        pose = se3.Pose.identity((2,), device=dev)
+        before = dict(ga.LAUNCHES)
+        out[str(dev)] = [x.cpu() for x in gicp.associate(
+            torch.as_tensor(q, device=dev), torch.as_tensor(m, device=dev),
+            pose, target, None)]
+        got = {k: ga.LAUNCHES[k] - before[k] for k in before}
+        assert got == ({"gather_i32": 1, "gather_rows8": 1} if dev == card
+                       else {"gather_i32": 0, "gather_rows8": 0})
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert torch.equal(a, b)
+    assert out["cpu"][2].sum() > 10000
+
+
+@pytest.mark.parametrize("method", ["d2d", "ndt"])
+def test_d2d_and_ndt_on_card_match_cpu(card, method):
+    """D2D (8192-voxel scan grid) and NDT (16384 points) against a
+    16384-voxel target on the card: each GN iteration's search one
+    gather_i32 launch; the pose within 1e-4 m / 1e-5 of the CPU's, the
+    match count equal."""
+    from veloslam_tpu_torch.registration import d2d, ndt
+    from veloslam_tpu_torch.registration import voxel as vx
+    rng = np.random.default_rng(5)
+    planes = rng.normal(size=(300, 3))
+    planes /= np.linalg.norm(planes, axis=1, keepdims=True)
+    c = rng.uniform(-40, 40, (300, 3))
+    u = rng.uniform(-3, 3, (300, 80, 2))
+    e1 = np.cross(planes, [0, 0, 1.0]) + 1e-3
+    e1 /= np.linalg.norm(e1, axis=1, keepdims=True)
+    e2 = np.cross(planes, e1)
+    surf = (c[:, None] + u[..., :1] * e1[:, None]
+            + u[..., 1:] * e2[:, None]).reshape(-1, 3)
+    tgt = (surf + rng.normal(0, 0.01, surf.shape)).astype(np.float32)
+    src = (surf[rng.permutation(len(surf))[:16384]]
+           + rng.normal(0, 0.01, (16384, 3))).astype(np.float32)
+    res = {}
+    for dev in ("cpu", card):
+        def T(a):
+            return torch.as_tensor(a, device=dev)
+        one = torch.tensor(1.0, device=dev)
+        origin = torch.zeros(3, device=dev)
+        roi = vx.build_grid(T(tgt), torch.ones(len(tgt), dtype=torch.bool,
+                                               device=dev), origin, one,
+                            capacity=16384)
+        m = torch.ones(16384, dtype=torch.bool, device=dev)
+        prior = se3.Pose(T(np.array([0.9998, 0.0, 0.0, 0.02], np.float32)
+                           / np.float32(1.0002)),
+                         T(np.array([0.2, -0.1, 0.05], np.float32)))
+        before = ga.LAUNCHES["gather_i32"]
+        if method == "d2d":
+            scan = vx.build_grid(T(src), m, origin, one, capacity=8192)
+            r = d2d.register_d2d(scan, roi, d2d.usable_mask(roi), prior)
+        else:
+            r = ndt.register(T(src), m, ndt.build_ndt_grid(roi), prior)
+        assert ga.LAUNCHES["gather_i32"] - before == (16 if dev == card
+                                                      else 0)
+        res[str(dev)] = [x.cpu() for x in (r.pose.q, r.pose.t,
+                                           r.n_matched)]
+    a, b = res["cpu"], res[str(card)]
+    assert int(a[2]) == int(b[2]) > 500
+    torch.testing.assert_close(b[0], a[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(b[1], a[1], rtol=0, atol=1e-4)
+
+
+def test_fused_and_chained_odometry_on_card_match_cpu(card):
+    """StreamingOdometry with the JAX defaults (fused, exact search) on
+    the card against the same on the CPU, 8 GN iterations a frame (one
+    NE launch and one search each); the chained path equal to the fused
+    one to the bit on the card."""
+    world = sim.World.demo(seed=8, extent=40.0, n_posts=60, n_walls=24)
+    seq = sim.generate_sequence(duration_s=0.8, model="hdl32", seed=23,
+                                world=world)
+    track = sim.truth_track(seq, drift_rate=0.3)
+    kw = dict(reg_points=4096, map_capacity=16384)
+    out = {}
+    for dev, fused in (("cpu", True), (card, True), (card, False)):
+        o = odo.StreamingOdometry(DeviceCalib.from_host(cal.hdl32(),
+                                                        device=dev),
+                                  fused=fused, **kw)
+        before = (ne.LAUNCHES, ga.LAUNCHES["gather_i32"])
+        r = o.run(seq["packets"], seq["pkt_times_us"], track, batch=512)
+        got = (ne.LAUNCHES - before[0],
+               ga.LAUNCHES["gather_i32"] - before[1])
+        want = 8 * r["n_frames"] if dev == card else 0
+        assert got == (want, want)
+        out[(str(dev), fused)] = r
+    a, b = out[("cpu", True)], out[(str(card), True)]
+    assert a["n_frames"] == b["n_frames"] >= 5
+    np.testing.assert_array_equal(a["times_us"], b["times_us"])
+    assert np.abs(a["positions"] - b["positions"]).max() < 0.01
+    c = out[(str(card), False)]
+    for k in ("times_us", "positions", "quaternions"):
+        np.testing.assert_array_equal(b[k], c[k])

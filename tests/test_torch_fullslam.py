@@ -63,7 +63,7 @@ def small():
         seed=drive["seed"], world=sim.World.demo(**drive["world"]),
         trajectory=sim.circle_trajectory(**drive["circle"]))
     eng = fs.FullSlam(DeviceCalib.from_host(cal.hdl32(), device="cpu"),
-                      model=cfg["model"], **drive["engine"])
+                      model=cfg["model"], use_dense=True, **drive["engine"])
     eng.run_device(seq["packets"], seq["pkt_times_us"],
                    sim.truth_track(seq, drift_rate=drive["drift_rate"]),
                    batch=drive["batch"])
@@ -301,7 +301,8 @@ def test_ensure_kf_capacity_and_ring_round_trip():
         np.testing.assert_array_equal(a, np.asarray(b))
     # A whole SlamState through numpy and back.
     st = fs.SlamState(odom=odo.init_state(device="cpu", map_capacity=16,
-                                          max_frames=4), kf=ring)
+                                          max_frames=4,
+                                          sample_assembly=True), kf=ring)
     back = convert.slam_state_from_numpy(convert.slam_state_to_numpy(st),
                                          "cpu")
     assert back.kf.capacity == 5

@@ -169,12 +169,17 @@ def test_ate_and_interpolate_positions_equal(seqs):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads nothing of jax and nothing
-    of the JAX package."""
+    """Importing every module of the port (the registration methods
+    among them) loads nothing of jax and nothing of the JAX package."""
     code = (
         "import sys, pkgutil, importlib, veloslam_tpu_torch as p\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name)\n"
+        "want = {'veloslam_tpu_torch.registration.' + m\n"
+        "        for m in ('d2d', 'ndt', 'gicp', 'voxel')}\n"
+        "assert want <= names, sorted(want - names)\n"
         "top = ('jax', 'jaxlib', 'veloslam_tpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in top)\n"
         "assert not bad, bad\n")

@@ -66,7 +66,8 @@ def _jodometry():
 
 def _port():
     return odo.StreamingOdometry(
-        DeviceCalib.from_host(cal.hdl32(), device="cpu"), **KW)
+        DeviceCalib.from_host(cal.hdl32(), device="cpu"), batched=True,
+        use_dense=True, **KW)
 
 
 def _batch(seq, track, i):
@@ -148,7 +149,7 @@ def test_port_on_cpu_matches_golden_trajectory(name):
                                 world=sim.World.demo(**drive["world"]))
     po = odo.StreamingOdometry(
         DeviceCalib.from_host(cal.default_for(cfg["model"]), device="cpu"),
-        model=cfg["model"], **cfg["odometry"])
+        model=cfg["model"], batched=True, use_dense=True, **cfg["odometry"])
     res = po.run(seq["packets"], seq["pkt_times_us"],
                  sim.truth_track(seq, drift_rate=drive["drift_rate"]),
                  batch=cfg["batch"])
@@ -159,7 +160,8 @@ def test_port_on_cpu_matches_golden_trajectory(name):
 
 
 def test_convert_round_trip():
-    st = odo.init_state(device="cpu", map_capacity=64, max_frames=8)
+    st = odo.init_state(device="cpu", map_capacity=64, max_frames=8,
+                        sample_assembly=True)
     back = convert.odometry_state_to_numpy(
         convert.odometry_state_from_numpy(
             convert.odometry_state_to_numpy(st), "cpu"))

@@ -16,7 +16,8 @@ finalize, slam_run's default mode) with the JAX package.
 * Frames in the FrameStore with their pcap offsets; a dropped payload is
   re-decoded from the pcap: the same points, positions within 0.1 mm and
   times within 1 µs (its batches start elsewhere in the pcap).
-* The refusals: registration.method "d2d" / "ndt" raise (not ported).
+* The other registration methods: the "small" drive with D2D and with
+  NDT against tests/fixtures/paths_golden_seed3.npz.
 * A checkpoint written by either package loads in the other: frame meta
   and payloads, INS track, graph and map equal.
 """
@@ -117,18 +118,49 @@ def test_frames_are_stored_and_redecode_from_the_pcap(run):
 
 @pytest.mark.parametrize("method", ["d2d", "ndt"])
 def test_d2d_and_ndt_raise_on_the_per_frame_path(method, tmp_path):
-    """No silent substitute: the per-frame path refuses the registration
-    methods the port does not have."""
-    from veloslam_tpu_torch.io import simulate as sim
-    cfg = SlamConfig()
-    cfg = dataclasses.replace(cfg, registration=dataclasses.replace(
-        cfg.registration, method=method))
-    seq = sim.generate_sequence(duration_s=0.3, model="hdl32", seed=2,
-                                world=sim.World.demo(2))
-    paths = sim.write_sequence(seq, str(tmp_path), name="d")
-    pipe = SlamPipeline(cfg, device="cpu")
-    with pytest.raises(ValueError, match="item g"):
-        pipe.run_offline(paths["pcap"], paths["ins"])
+    """The per-frame path registers with D2D and NDT (it refused them
+    before they were ported): the "small" drive with each method, from
+    pcap through finalize, against the JAX package's run of the same
+    files (paths_golden_seed3.npz) with chip_smoke.py's per_frame gates
+    and the registered flags; here also positions within 1 mm (measured
+    ~6e-5 m) and the map tiles equal, their counts within 1e-6
+    relative."""
+    gold = np.load(cs.PATHS_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    name = f"{method}_small"
+    drive = {d["name"]: d for d in cfg["per_frame"]}[name]
+    paths, seq = cs.write_pipeline_drive(drive, cfg["model"], str(tmp_path))
+    pipe, res, mid, _ = cs.run_perframe(paths, drive, torch.device("cpu"))
+    assert pipe.cfg.registration.method == method
+    cs.check_perframe(pipe, res, mid, seq, gold, name, flags=True,
+                      min_closures=cs.PATHS_MIN_CLOSURES[name])
+    assert gold[f"{name}_registered"].sum() == res["n_frames"] - 1
+    np.testing.assert_allclose(res["positions"], gold[f"{name}_positions"],
+                               atol=1e-3)
+    tiles, counts = cs.map_tiles(pipe)
+    np.testing.assert_array_equal(tiles, gold[f"{name}_map_tiles"])
+    np.testing.assert_allclose(counts, gold[f"{name}_map_tile_counts"],
+                               rtol=1e-6)
+
+
+def test_paths_golden_config_is_the_generators():
+    """paths_golden_seed3.npz holds what its generator derives today: the
+    per-frame golden's drives with method "d2d" / "ndt", the batched
+    golden's with use_dense_index=False, the odometry golden's drives;
+    the port rebuilds each SlamConfig unchanged."""
+    from fixtures.gen_torch_paths_golden import golden_config
+    cfg = json.loads(str(np.load(cs.PATHS_GOLDEN)["config"]))
+    assert cfg == golden_config()
+    assert {d["name"] for d in cfg["per_frame"]} == set(
+        cs.PATHS_MIN_CLOSURES)
+    for d in cfg["per_frame"] + cfg["batched"]:
+        back = dataclasses.asdict(SlamConfig.from_dict(d["slam"]))
+        assert json.loads(json.dumps(back)) == d["slam"]
+    for d in cfg["per_frame"]:
+        assert d["slam"]["registration"]["method"] == d["name"][:3]
+    for d in cfg["batched"]:
+        assert not d["slam"]["registration"]["use_dense_index"]
+    assert (cfg["fused_batch"], cfg["fast_batch"]) == (512, 2048)
 
 
 def _jax_session(tmp_path):

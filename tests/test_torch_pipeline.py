@@ -16,8 +16,10 @@
 * The CLI (`slam_run --batched --simulate 2 --device cpu`, `--fast`,
   and the default per-frame mode with `--checkpoint-dir`) writes the JAX
   app's files; it names the part of the per-frame mode not ported yet
-  (`--bev`); SlamPipeline() without a card and without device="cpu"
-  raises; run_offline_batched refuses use_dense_index=False.
+  (`--bev`); `--fast` writes the JAX app's trajectory; SlamPipeline()
+  without a card and without device="cpu" raises.
+* run_offline_batched with use_dense_index=False (the binary-search
+  lookup) on the small drive against paths_golden_seed3.npz.
 """
 
 import json
@@ -109,23 +111,64 @@ def test_results_have_the_jax_keys_and_ins_health(small):
 
 
 def test_use_dense_index_false_raises(tmp_path):
-    """registration.use_dense_index=False asks the batched path for the
-    binary-search correspondence lookup (StreamingOdometry's use_dense=
-    False), which the port does not have: run_offline_batched refuses it
-    instead of running the dense index.  The per-frame path serves it
-    (tests/test_torch_perframe.py, drive "small_search")."""
-    import dataclasses
+    """registration.use_dense_index=False, which run_offline_batched
+    refused before the binary-search lookup was ported, now takes it
+    (FullSlam's use_dense=False, as the JAX pipeline passes it): the
+    small drive with it, from pcap through finalize, against the JAX
+    package's run of the same files (paths_golden_seed3.npz,
+    "search_small") with chip_smoke.py's pipeline gates; here also
+    positions within 1 mm and the landmark counts exact."""
+    import chip_smoke as cs
+    gold = np.load(cs.PATHS_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["batched"]}["search_small"]
+    paths, seq = write_pipeline_drive(drive, cfg["model"], str(tmp_path))
+    pipe, res, _ = cs.run_pipeline(paths, drive, torch.device("cpu"))
+    assert not pipe.cfg.registration.use_dense_index
+    cs._check_pipeline(pipe, res, seq, gold, "search_small",
+                       cs._launches(), None, torch.device("cpu"))
+    np.testing.assert_allclose(res["positions"],
+                               gold["search_small_positions"], atol=1e-3)
+    for k in ("n_landmarks", "n_landmark_obs"):
+        assert res[k] == int(gold[f"search_small_{k}"]), k
+    # No dilated index: its window coverage is not tracked.
+    assert res["dense_index_min_coverage"] == 1.0
 
+
+def test_slam_run_fast_matches_the_jax_app(tmp_path):
+    """--fast builds the JAX app's engine, StreamingOdometry(batched=True)
+    with frame sampling and the exact binary-search lookup (before, the
+    port's --fast took the dilated dense index, 1.4 cm away on this
+    drive).  Both apps read the same pcap + INS log of a dense world with
+    the INS drifting 0.5 m/s (on the default --simulate world no frame
+    passes the lateral-observability gate, so every engine returns the
+    INS prior): trajectory.txt's times equal, positions within 1 cm
+    (measured 1e-6 m, the file's precision)."""
+    from veloslam_tpu.apps import slam_run as jax_slam_run
+    from veloslam_tpu_torch.apps import slam_run
+    from veloslam_tpu_torch.io import packets as pk
     from veloslam_tpu_torch.io import simulate as sim
-    cfg = SlamConfig()
-    cfg = dataclasses.replace(cfg, registration=dataclasses.replace(
-        cfg.registration, use_dense_index=False))
-    pipe = SlamPipeline(cfg, device="cpu")
-    seq = sim.generate_sequence(duration_s=0.2, model="hdl32", seed=2,
-                                world=sim.World.demo(2))
-    paths = sim.write_sequence(seq, str(tmp_path), name="d")
-    with pytest.raises(ValueError, match="binary-search"):
-        pipe.run_offline_batched(paths["pcap"], paths["ins"])
+    seq = sim.generate_sequence(
+        duration_s=2.0, model="hdl32", seed=23,
+        world=sim.World.demo(seed=8, extent=40.0, n_posts=60, n_walls=24))
+    paths = sim.write_sequence(seq, str(tmp_path), name="dense")
+    ins = pk.read_ins_txt(paths["ins"])
+    ts = (ins["t_us"] - ins["t_us"][0]) * 1e-6
+    pk.write_ins_txt(paths["ins"], ins["t_us"], ins["pos_xy"] + np.stack(
+        [np.zeros_like(ts), 0.5 * ts], -1), np.deg2rad(ins["yaw_deg"]),
+        speed=ins["speed"])
+    args = ["--fast", "--pcap", paths["pcap"], "--ins", paths["ins"],
+            "--batch", "1024"]
+    out, ref = tmp_path / "out", tmp_path / "jax"
+    assert slam_run.main([*args, "--device", "cpu",
+                          "--out-dir", str(out)]) == 0
+    assert jax_slam_run.main([*args, "--platform", "cpu",
+                              "--out-dir", str(ref)]) == 0
+    got = np.loadtxt(out / "trajectory.txt", ndmin=2)
+    want = np.loadtxt(ref / "trajectory.txt", ndmin=2)
+    assert got.shape == want.shape and len(got) > 10
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    assert np.abs(got[:, 1:4] - want[:, 1:4]).max() <= 0.01
 
 
 def test_golden_config_is_bench_config():

@@ -133,7 +133,10 @@ def main(argv=None) -> int:
             pipe.feed_ins_txt(ins_path)
         pkts, times, _ = read_lidar_packets(pcap_path, args.max_packets)
         slots = slots_for_batch(args.model, args.batch)
-        odo = StreamingOdometry(pipe.dcalib, model=args.model)
+        # The JAX app's engine: the batched step with frame sampling and
+        # the exact binary-search lookup (use_dense left off).
+        odo = StreamingOdometry(pipe.dcalib, model=args.model,
+                                n_beams=pipe.calib.n_lasers, batched=True)
         t0 = time.perf_counter()
         res = odo.run(pkts, times, pipe.track, batch=args.batch)
         wall = time.perf_counter() - t0

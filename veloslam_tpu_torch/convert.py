@@ -1,15 +1,16 @@
 """Carry calibration, odometry, full-SLAM and pose-graph state across
 from the JAX package.
 
-The JAX package's `DeviceCalib`, `OdometryState` (sample-assembly carry),
+The JAX package's `DeviceCalib`, `OdometryState` (with the sampling
+carry of the batched path or the assembly carry of the fused one),
 `KeyframeRing`, `SlamState` and `GraphArrays` are NamedTuples; converted
 leaf by leaf with `np.asarray`, they become trees of numpy arrays with the
 same field names.  Its host `PoseGraph` crosses as the fields that
-`PoseGraph.save` writes.  These functions turn such trees into the port's tensors on a
-device, and the port's state back into numpy, so both packages can start
-a step from one mid-drive state.  The port's ring carries one trash row
-past its capacity (runtime.fullslam.KeyframeRing); it is added on the way
-in and cut off on the way out.
+`PoseGraph.save` writes.  These functions turn such trees into the
+port's tensors on a device, and the port's state back into numpy, so both
+packages can start a step from one mid-drive state.  The port's ring
+carries one trash row past its capacity (runtime.fullslam.KeyframeRing);
+it is added on the way in and cut off on the way out.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from veloslam_tpu_torch.decode.decode import DeviceCalib
-from veloslam_tpu_torch.decode.frames import SampleCarry
+from veloslam_tpu_torch.decode.frames import AssemblyCarry, SampleCarry
 from veloslam_tpu_torch.graph.posegraph import GraphArrays, PoseGraph
 from veloslam_tpu_torch.registration.voxel import VoxelGrid
 from veloslam_tpu_torch.runtime.fullslam import KeyframeRing, SlamState
@@ -43,12 +44,15 @@ def calib_from_numpy(leaves, device) -> DeviceCalib:
 
 
 def odometry_state_from_numpy(leaves, device) -> OdometryState:
-    """An OdometryState-shaped tree of numpy arrays (sample-assembly carry)
-    → the port's OdometryState on `device`."""
+    """An OdometryState-shaped tree of numpy arrays → the port's
+    OdometryState on `device`; the carry is an AssemblyCarry when it has
+    the assembly's fields, else a SampleCarry."""
     rest = {f: torch.as_tensor(np.array(getattr(leaves, f)), device=device)
             for f in OdometryState._fields if f not in ("carry", "map_grid")}
+    carry = (AssemblyCarry if hasattr(leaves.carry, "intensity")
+             else SampleCarry)
     return OdometryState(
-        carry=_tree_to_torch(SampleCarry, leaves.carry, device),
+        carry=_tree_to_torch(carry, leaves.carry, device),
         map_grid=_tree_to_torch(VoxelGrid, leaves.map_grid, device), **rest)
 
 

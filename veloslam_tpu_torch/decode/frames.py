@@ -85,7 +85,8 @@ def assemble_frames(decoded: DecodedBatch, xyz_world: torch.Tensor,
                     pkt_rel_s: torch.Tensor, carry: AssemblyCarry,
                     carry_start_rel_s: torch.Tensor, *, model: str,
                     n_beams: int, max_frames: int = 8,
-                    max_firings: int = C.MAX_FIRINGS_PER_FRAME
+                    max_firings: int = C.MAX_FIRINGS_PER_FRAME,
+                    lean: bool = False
                     ) -> Tuple[FrameBatch, torch.Tensor, torch.Tensor,
                                AssemblyCarry, torch.Tensor]:
     """One assembly step.
@@ -101,7 +102,14 @@ def assemble_frames(decoded: DecodedBatch, xyz_world: torch.Tensor,
     Returns (frames with max_frames slots, n_completed () int32 — valid
     slots, the excess of a batch that completes more being lost,
     start_rel_s (max_frames,) float32 per slot, new carry,
-    open_start_rel_s () float32).  No host read."""
+    open_start_rel_s () float32).  The scatter's winner mask is read once
+    (a boolean index).
+
+    `lean=True` skips the intensity, rel_s and azimuth scatters and
+    returns zeros in those fields, for the odometry, which reads only
+    xyz and mask.  A stream is lean all or nothing: a lean step zeroes
+    those fields in the carried open frame too, so mixing lean and full
+    steps on one carry would corrupt the boundary frame's channels."""
     lasers = C.HDL_LASERS_PER_FIRING
     N = decoded.xyz.shape[0]
     B = N * C.HDL_FIRINGS_PER_PACKET        # firing blocks in batch
@@ -162,12 +170,20 @@ def assemble_frames(decoded: DecodedBatch, xyz_world: torch.Tensor,
         return buf
 
     xyz_buf = scatter(carry.xyz, xyz_world.reshape(B, lasers, 3), (3,))
-    rel_pt = (rel_block[:, None] + (decoded.dt_s.reshape(B, lasers)
-                                    - decoded.dt_s[:, :, :1].reshape(B, 1)))
-    rel_frame_pt = rel_pt - frame_start[:, None]             # frame-relative
-    int_buf = scatter(carry.intensity, decoded.intensity.reshape(B, lasers))
-    rel_buf = scatter(carry.rel_s, rel_frame_pt)
-    az_buf = scatter(carry.azimuth, decoded.az_pt_ticks.reshape(B, lasers))
+    if lean:
+        int_buf, rel_buf, az_buf = (
+            torch.zeros((S + 2, L, F), dtype=c.dtype, device=dev)
+            for c in (carry.intensity, carry.rel_s, carry.azimuth))
+    else:
+        rel_pt = (rel_block[:, None]
+                  + (decoded.dt_s.reshape(B, lasers)
+                     - decoded.dt_s[:, :, :1].reshape(B, 1)))
+        rel_frame_pt = rel_pt - frame_start[:, None]         # frame-relative
+        int_buf = scatter(carry.intensity,
+                          decoded.intensity.reshape(B, lasers))
+        rel_buf = scatter(carry.rel_s, rel_frame_pt)
+        az_buf = scatter(carry.azimuth,
+                         decoded.az_pt_ticks.reshape(B, lasers))
     mask_buf = scatter(carry.mask, torch.ones_like(ok))
     mask_buf[TRASH] = False
 

@@ -8,8 +8,9 @@ launch.  Correspondences come from the pre-dilated dense index (shared
 map target, one gather per point; the bulk paths), from the plain dense
 index with the exact nearest mean of seven cells (a shared target, the
 per-frame pipeline), or from seven binary searches with a nearest-mean
-choice (per-scan targets: loop-closure verification, and the per-frame
-pipeline without a dense index, its one target stacked at F = 1).  Each
+choice (a shared target with no index: the streaming odometry's exact
+search and the per-frame pipeline without a dense index; per-scan
+targets: loop-closure verification).  Each
 Gauss-Newton iteration with fixed correspondences is one
 `normal_equations.gn_iteration` call for all F slots: the fused normal
 equations, a damped 6×6 Cholesky solve, a step clamp and a left
@@ -105,22 +106,28 @@ def associate(pts, mask, pose: se3.Pose, target: PlaneGrid,
     """Correspondences at the CURRENT poses: per-point target plane
     (μ, n) as contiguous (F, P, 3) and the hit mask (F, P).
 
-    A shared target comes with its DilatedIndex (one gather per point) or
-    its DenseIndex (the nearest usable mean of seven cells,
-    `voxel.lookup_nearest_dense`); F stacked targets (`dense=None`) use
-    `voxel.lookup_nearest`.  Either way (μ, n) come from one row-gather
-    kernel launch."""
+    A shared target (rows (V, 8)) comes with its DilatedIndex (one gather
+    per point), its DenseIndex (the nearest usable mean of seven cells,
+    `voxel.lookup_nearest_dense`), or no index (`dense=None`: the same
+    choice by seven binary searches, `voxel.lookup_nearest` of all F·P
+    points against the target stacked at F = 1); F stacked targets (rows
+    (F, V, 8), `dense=None`) search slot by slot.  Either way (μ, n) come
+    from one row-gather kernel launch."""
     F, P = mask.shape
     g = target.grid
     p = se3.apply(se3.Pose(pose.q[:, None], pose.t[:, None]), pts)
-    if dense is None:
+    if dense is None and target.rows.dim() == 3:
         idx = vx.lookup_nearest(g, p, mask, target.usable)
         V = target.rows.shape[1]
         rows = torch.clamp(idx, min=0) + V * torch.arange(
             F, dtype=torch.int32, device=pts.device)[:, None]
         table = target.rows.reshape(F * V, 8)
     else:
-        if isinstance(dense, vx.DenseIndex):
+        if dense is None:
+            idx = vx.lookup_nearest(vx.stack1(g), p.reshape(1, F * P, 3),
+                                    mask.reshape(1, -1),
+                                    target.usable[None]).reshape(F, P)
+        elif isinstance(dense, vx.DenseIndex):
             idx = vx.lookup_nearest_dense(g, dense, p.reshape(-1, 3),
                                           mask.reshape(-1), target.usable
                                           ).reshape(F, P)
@@ -163,9 +170,9 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
 
     Three uses, as in the JAX original:
       * odometry — every frame slot against one shared map target with
-        its DilatedIndex;
+        its DilatedIndex, or with no index (binary search);
       * the per-frame pipeline — one scan against the map ROI with its
-        DenseIndex (or, without one, the ROI stacked at F = 1);
+        DenseIndex, or with no index;
       * loop-closure verification — each candidate against its own target
         (F stacked targets, `dense=None`).
 
@@ -198,8 +205,7 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
 def register(pts, mask, target: PlaneGrid, init_pose: se3.Pose,
              dense: Optional[Index], **kw) -> GicpResult:
     """One scan ((P, 3), (P,), pose (4,)/(3,)) against one target:
-    `register_batch` at F = 1, with the slot axis dropped (`dense=None`
-    takes the target stacked at F = 1)."""
+    `register_batch` at F = 1, with the slot axis dropped."""
     res = register_batch(pts[None], mask[None], target,
                          se3.Pose(init_pose.q[None], init_pose.t[None]),
                          dense, **kw)

@@ -67,12 +67,9 @@ def normal_equations_plain(pts, q, t, mu, n, hit, *, huber_delta=0.5,
             hit.sum(dim=-1, dtype=torch.int32))
 
 
-def _gn_delta(H, b, n_hit, damping: float):
-    """Damped Cholesky solve, guarded and clamped: (δ (F,6), ok (F,),
-    scale (F,)); δ is already zeroed where not ok and scaled."""
-    eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    trace = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
-    Hd = H + damping * eye + 1e-6 * trace[:, None, None] * eye
+def _damped_step(Hd, b, n_hit):
+    """δ = −Hd⁻¹b by a Cholesky solve, guarded and clamped: (δ (F,6),
+    ok (F,), scale (F,)); δ is already zeroed where not ok and scaled."""
     L, info = torch.linalg.cholesky_ex(Hd)
     # L Lᵀ x = b as two triangular solves: torch.cholesky_solve's batched
     # CUDA path synchronizes the stream on every call (16 host stalls per
@@ -92,6 +89,26 @@ def _gn_delta(H, b, n_hit, damping: float):
         1.0 / torch.clamp(tn, min=1e-12), 0.3 / torch.clamp(rn, min=1e-12)),
         max=1.0)
     return delta * scale[:, None], ok, scale
+
+
+def _gn_delta(H, b, n_hit, damping: float):
+    """The GICP step: Hd = H + damping·I + 1e-6·trace(H)·I, then
+    `_damped_step`."""
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    trace = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
+    Hd = H + damping * eye + 1e-6 * trace[:, None, None] * eye
+    return _damped_step(Hd, b, n_hit)
+
+
+def _gn_delta_shifted(H, b, n_hit, damping: float):
+    """The D2D and NDT step: Hd = H + (damping + 1e-6·trace(H))·I, the
+    shift added as one term as the JAX package's d2d.py and ndt.py write
+    it (`_gn_delta` adds the two parts one after the other, which rounds
+    differently in float32), then `_damped_step`."""
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    trace = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
+    Hd = H + (damping + 1e-6 * trace)[:, None, None] * eye
+    return _damped_step(Hd, b, n_hit)
 
 
 def _gn_step(pose: se3.Pose, H, b, n_hit, damping: float) -> se3.Pose:

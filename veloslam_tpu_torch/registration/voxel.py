@@ -146,6 +146,11 @@ def build_grid(pts, mask, origin, voxel_size, *, capacity: int,
                      origin=origin, voxel_size=voxel_size)
 
 
+def stack1(grid: VoxelGrid) -> VoxelGrid:
+    """One grid as F = 1 stacked grids (views), for `lookup_nearest`."""
+    return VoxelGrid(*(x[None] for x in grid))
+
+
 def lookup(grid: VoxelGrid, query_keys) -> torch.Tensor:
     """Rows of query keys in the grid (−1 where absent): a binary search
     over the sorted keys, then one kernel gather of the key found there.
@@ -185,7 +190,11 @@ def lookup_nearest(grid: VoxelGrid, pts, mask, usable,
     ok7 = (idx7 >= 0) & torch.gather(usable, 1, safe).reshape(F, 7, P)
     mu7 = torch.gather(grid.mean, 1, safe[..., None].expand(-1, -1, 3)
                        ).reshape(F, 7, P, 3)
-    d2 = torch.sum((pts[:, None] - mu7) ** 2, dim=-1)
+    # (x² + y²) + z² in this order on every device, as the JAX original
+    # sums on the CPU (a device reduction may add in another order and
+    # break a near tie the other way).
+    d = pts[:, None] - mu7
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
     d2 = torch.where(ok7, d2, float("inf"))
     best = torch.argmin(d2, dim=1, keepdim=True)                 # (F, 1, P)
     idx = torch.gather(idx7, 1, best)[:, 0]
@@ -464,3 +473,106 @@ def smallest_eigenvector(cov: torch.Tensor, eps: float = 1e-9):
     fallback = torch.zeros_like(v)
     fallback[..., 2] = 1.0
     return torch.where(n > 1e-12, v / torch.clamp(n, min=1e-12), fallback)
+
+
+# --- weights of the distribution-matching costs (D2D, NDT) -------------------
+
+def _nullspace_dir(c: torch.Tensor) -> torch.Tensor:
+    """Largest row cross product of (..., 3, 3): an approximate null
+    direction (unnormalized); the first of equal norms wins, as
+    jnp.argmax."""
+    r0, r1, r2 = c[..., 0, :], c[..., 1, :], c[..., 2, :]
+    cands = torch.stack([torch.linalg.cross(r0, r1),
+                         torch.linalg.cross(r0, r2),
+                         torch.linalg.cross(r1, r2)], dim=-2)
+    best = torch.argmax(torch.linalg.vector_norm(cands, dim=-1), dim=-1)
+    return torch.gather(cands, -2, best[..., None, None].expand(
+        *best.shape, 1, 3)).squeeze(-2)
+
+
+def _frame(cov: torch.Tensor, l1: torch.Tensor):
+    """Orthonormal eigenvectors (v1, v2, v3) of the largest, middle and
+    smallest eigenvalue: v3 from `smallest_eigenvector`, v1 the null
+    direction of cov − λ1·I orthogonalized against v3 (any perpendicular
+    when that vanishes), v2 = v3 × v1."""
+    v3 = smallest_eigenvector(cov)
+    v1 = _nullspace_dir(cov - l1[..., None, None] * _eye3(cov))
+    v1 = v1 - torch.sum(v1 * v3, -1, keepdim=True) * v3
+    n1 = torch.linalg.vector_norm(v1, dim=-1, keepdim=True)
+    ex = torch.zeros_like(v3)
+    ex[..., 0] = 1.0
+    ey = torch.zeros_like(v3)
+    ey[..., 1] = 1.0
+    alt = torch.linalg.cross(v3, torch.where(torch.abs(v3[..., :1]) < 0.9,
+                                             ex, ey))
+    alt = alt / torch.linalg.vector_norm(alt, dim=-1, keepdim=True)
+    v1 = torch.where(n1 > 1e-12, v1 / torch.clamp(n1, min=1e-12), alt)
+    return v1, torch.linalg.cross(v3, v1), v3
+
+
+def _outer(v: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return w[..., None, None] * v[..., :, None] * v[..., None, :]
+
+
+def clamped_inverse(cov: torch.Tensor, floor_ratio: float = 0.01,
+                    eps: float = 1e-9) -> torch.Tensor:
+    """Eigenvalue-clamped inverse for classic NDT weighting:
+    W = Σᵢ vᵢvᵢᵀ / max(λᵢ, floor_ratio·λ₁), so the condition number is at
+    most 1/floor_ratio.  Closed form; where eigenvalues tie, the clamped
+    weights tie too and the ill-defined directions do not change W."""
+    l1, l2, l3 = eigvals3(cov)
+    l1 = torch.clamp(l1, min=eps)
+    v1, v2, v3 = _frame(cov, l1)
+    floor = floor_ratio * l1
+    return (_outer(v1, 1.0 / torch.maximum(l1, floor))
+            + _outer(v2, 1.0 / torch.maximum(l2, floor))
+            + _outer(v3, 1.0 / torch.maximum(l3, floor)))
+
+
+def normalized_cov(cov: torch.Tensor, floor: float = 1e-3,
+                   plane_inflation: float = 100.0) -> torch.Tensor:
+    """Scale-normalized covariance for D2D and robust NDT weighting: each
+    eigenvalue becomes max(λᵢ/λ₁, floor), the two in-plane ones plus
+    planarity²·plane_inflation, eigenvectors kept.  Normalizing by λ₁
+    makes the weight scale-free; the inflation lets a planar voxel act
+    point-to-plane (its in-plane mean follows the sensor's sampling, not
+    the surface) while corner and edge voxels keep their 3-D shape."""
+    l1, l2, l3 = eigvals3(cov)
+    l1 = torch.clamp(l1, min=1e-12)
+    v1, v2, v3 = _frame(cov, l1)
+    planarity = torch.clamp((l2 - l3) / l1, 0.0, 1.0)
+    infl = planarity * planarity * plane_inflation
+    return (_outer(v1, torch.clamp(l1 / l1, min=floor) + infl)
+            + _outer(v2, torch.clamp(l2 / l1, min=floor) + infl)
+            + _outer(v3, torch.clamp(l3 / l1, min=floor)))
+
+
+def structure_usable(grid: VoxelGrid, *, min_points: float = 4.0,
+                     max_linearity: float = 0.9) -> torch.Tensor:
+    """Target gate of the distribution-matching costs: occupied, at least
+    `min_points`, and not line-like (linearity (λ₁ − λ₂)/λ₁ below
+    `max_linearity`; a one-ring arc's mean follows the sensor)."""
+    l1, l2, _ = eigvals3(grid.cov)
+    linearity = (l1 - l2) / torch.clamp(l1, min=1e-12)
+    return (grid.occupied & (grid.count >= min_points)
+            & (linearity < max_linearity))
+
+
+def regularized_inverse(cov: torch.Tensor, eps: float = 1e-3
+                        ) -> torch.Tensor:
+    """Batched (Σ + εI)⁻¹ of (..., 3, 3) by the closed-form adjugate over
+    the cofactor determinant (the JAX original divides by an LU
+    determinant: the two agree to float32 rounding)."""
+    a = cov + eps * _eye3(cov)
+    adj = torch.stack([
+        a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1],
+        a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2],
+        a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1],
+        a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2],
+        a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0],
+        a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2],
+        a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0],
+        a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1],
+        a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0],
+    ], dim=-1).reshape(a.shape)
+    return adj / _det3(a)[..., None, None]

@@ -116,22 +116,26 @@ def _admit_keyframes(kf: KeyframeRing, slots: odo.SlotResults,
 def slam_step_batched(state: SlamState, pkts, calib, pkt_rel_s,
                       carry_start_rel_s, batch_start_rel_stream_s,
                       track_rel_s, track_q, track_t, track_v, *,
-                      model: str, reg_points: int = 16384,
-                      reg_iterations: int = 8, max_frames_batch: int = 4,
-                      min_points: int = 4, min_planarity: float = 0.35,
-                      scan_points: int = 8192, kf_dist_m: float = 2.0,
-                      kf_rot_rad: float = 0.1745,
-                      reassociate_every: int = 1, map_decay: float = 0.98
+                      model: str, n_beams: int = 32,
+                      reg_points: int = 16384, reg_iterations: int = 8,
+                      max_frames_batch: int = 4, min_points: int = 4,
+                      min_planarity: float = 0.35, scan_points: int = 8192,
+                      kf_dist_m: float = 2.0, kf_rot_rad: float = 0.1745,
+                      use_pallas: bool = False, use_dense: bool = False,
+                      reassociate_every: int = 1,
+                      sample_assembly: bool = False, map_decay: float = 0.98
                       ) -> Tuple[SlamState, torch.Tensor]:
-    """One device step: batched odometry + keyframe admission (the ring
-    is written in place)."""
+    """One device step: batched odometry (`odometry._batched_core`, its
+    flags as there; `use_pallas` changes nothing) + keyframe admission
+    (the ring is written in place)."""
     odom, open_start, slots = odo._batched_core(
         state.odom, pkts, calib, pkt_rel_s, carry_start_rel_s,
         batch_start_rel_stream_s, track_rel_s, track_q, track_t, track_v,
-        model=model, reg_points=reg_points, reg_iterations=reg_iterations,
-        max_frames_batch=max_frames_batch, min_points=min_points,
-        min_planarity=min_planarity, reassociate_every=reassociate_every,
-        map_decay=map_decay)
+        model=model, n_beams=n_beams, reg_points=reg_points,
+        reg_iterations=reg_iterations, max_frames_batch=max_frames_batch,
+        min_points=min_points, min_planarity=min_planarity,
+        use_dense=use_dense, reassociate_every=reassociate_every,
+        sample_assembly=sample_assembly, map_decay=map_decay)
     kf = _admit_keyframes(state.kf, slots, batch_start_rel_stream_s,
                           scan_points=scan_points, kf_dist_m=kf_dist_m,
                           kf_rot_rad=kf_rot_rad)
@@ -139,26 +143,31 @@ def slam_step_batched(state: SlamState, pkts, calib, pkt_rel_s,
 
 
 class FullSlam(odo.StreamingOdometry):
-    """Host driver of the full device-resident SLAM loop: the bulk
-    odometry driver plus a device keyframe ring; `finalize_device` runs
-    loop closure + graph solve on it, `keyframes()` reads it back."""
+    """Host driver of the full device-resident SLAM loop: the batched
+    odometry driver (always `batched`, with frame sampling; `use_dense`
+    picks the dilated index, off by default as in the JAX package) plus a
+    device keyframe ring; `finalize_device` runs loop closure + graph
+    solve on it, `keyframes()` reads it back."""
 
     # Above graph.pcg.DENSE_MAX_POSES the finalize solves by matrix-free
     # PCG, so the ring is bounded by device memory: 16384 keyframes,
     # ~32 km at 2 m spacing.
     MAX_KF_CAPACITY = 16384
 
-    def __init__(self, calib, *, model: str = "hdl32",
+    def __init__(self, calib, *, model: str = "hdl32", n_beams: int = 32,
                  voxel_size: float = 1.0, reg_points: int = 16384,
                  reg_iterations: int = 8, map_capacity: int = 32768,
                  max_frames: int = 4096, kf_capacity: int = 512,
                  kf_scan_points: int = 8192, kf_dist_m: float = 2.0,
-                 kf_rot_deg: float = 10.0, reassociate_every: int = 1,
+                 kf_rot_deg: float = 10.0, use_pallas: bool = False,
+                 use_dense: bool = False, reassociate_every: int = 1,
                  frame_rate_hz: float = 10.0, map_decay: float = 0.98):
-        super().__init__(calib, model=model, voxel_size=voxel_size,
-                         reg_points=reg_points,
+        super().__init__(calib, model=model, n_beams=n_beams,
+                         voxel_size=voxel_size, reg_points=reg_points,
                          reg_iterations=reg_iterations,
                          map_capacity=map_capacity, max_frames=max_frames,
+                         batched=True, use_pallas=use_pallas,
+                         use_dense=use_dense,
                          reassociate_every=reassociate_every,
                          frame_rate_hz=frame_rate_hz, map_decay=map_decay)
         # Keyframe scans are a prefix of the registration point set.
@@ -173,12 +182,14 @@ class FullSlam(odo.StreamingOdometry):
         st, open_start = slam_step_batched(
             SlamState(odom=self.state, kf=self.ring), pkts, self.calib, rel,
             carry_start, batch_rel, *trk, model=self.model,
-            reg_points=self.reg_points, reg_iterations=self.reg_iterations,
+            n_beams=self.n_beams, reg_points=self.reg_points,
+            reg_iterations=self.reg_iterations,
             max_frames_batch=max_frames_batch,
             scan_points=self.kf_scan_points, kf_dist_m=self.kf_dist_m,
-            kf_rot_rad=self.kf_rot_rad,
+            kf_rot_rad=self.kf_rot_rad, use_pallas=self.use_pallas,
+            use_dense=self.use_dense,
             reassociate_every=self.reassociate_every,
-            map_decay=self.map_decay)
+            sample_assembly=self.sample_assembly, map_decay=self.map_decay)
         self.state, self.ring = st.odom, st.kf
         return open_start
 

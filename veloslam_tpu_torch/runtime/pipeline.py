@@ -42,11 +42,11 @@ package (the small pose math in float32 torch on the CPU).  Stage names
 are the JAX package's; the card's work is queued asynchronously, so a
 stage's time is its enqueue time unless the timers synchronize.
 
-Not ported yet (ROADMAP.md): `run_online` and the position-packet
-handler of live mode; the "d2d" and "ndt" registration methods; the
-batched path's binary-search lookup (`use_dense_index=False`).  The JAX
-package's `warmup*` and host-solve placement are TPU workarounds the
-port does not need.
+Registration follows `RegistrationConfig.method`: point-to-plane GICP,
+D2D or NDT on the per-frame path, GICP on the batched one.  Not ported
+yet (ROADMAP.md): `run_online` and the position-packet handler of live
+mode.  The JAX package's `warmup*` and host-solve placement are TPU
+workarounds the port does not need.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ from veloslam_tpu_torch.io import packets as pk
 from veloslam_tpu_torch.io.pcap import (PcapReader, read_lidar_packets,
                                         read_position_packets)
 from veloslam_tpu_torch.map.voxelmap import VoxelMap
-from veloslam_tpu_torch.registration import gicp
+from veloslam_tpu_torch.registration import d2d, gicp, ndt
 from veloslam_tpu_torch.registration import voxel as vx
 from veloslam_tpu_torch.runtime.framestore import FrameStore
 from veloslam_tpu_torch.runtime.fullslam import FullSlam
@@ -151,14 +151,6 @@ def _host_pose(q, t) -> se3.Pose:
 
 def _np(x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy().copy()
-
-
-def _stacked(target: gicp.PlaneGrid) -> gicp.PlaneGrid:
-    """One target as F = 1 stacked targets (the binary-search lookup)."""
-    return gicp.PlaneGrid(grid=vx.VoxelGrid(*(x[None] for x in target.grid)),
-                          normal=target.normal[None],
-                          usable=target.usable[None],
-                          rows=target.rows[None])
 
 
 class SlamPipeline:
@@ -494,14 +486,9 @@ class SlamPipeline:
         proposal, batched verification, pose-graph solve, per-frame
         correction) is queued before the one readback.  The host then
         mirrors the solved graph and builds the tiled map (left to
-        `finalize()` with `defer_map`).  Frame payloads are not kept."""
-        if not self.cfg.registration.use_dense_index:
-            raise ValueError(
-                "registration.use_dense_index=False selects the binary-"
-                "search correspondence lookup for the batched path "
-                "(StreamingOdometry's use_dense=False in the JAX package), "
-                "which the port does not have yet (ROADMAP slice 3a, item "
-                "c); run_offline (the per-frame path) serves it")
+        `finalize()` with `defer_map`).  Correspondences come from the
+        map's dilated dense index, or with use_dense_index=False from the
+        exact binary-search lookup.  Frame payloads are not kept."""
         if ins_path:
             self.feed_ins_txt(ins_path)
         pkts, times, _ = read_lidar_packets(pcap_path, max_packets)
@@ -513,13 +500,15 @@ class SlamPipeline:
         gc = self.cfg.graph
         with self.timers.stage("slam_batched"):
             eng = FullSlam(self.dcalib, model=sc.model,
-                           voxel_size=rc.voxel_size,
+                           n_beams=sc.n_lasers, voxel_size=rc.voxel_size,
                            map_capacity=rc.rolling_map_capacity,
                            reg_points=rc.max_points,
                            reg_iterations=rc.max_iterations,
                            kf_capacity=gc.max_keyframes,
                            kf_dist_m=gc.keyframe_translation_m,
                            kf_rot_deg=gc.keyframe_rotation_deg,
+                           use_pallas=rc.use_pallas,
+                           use_dense=rc.use_dense_index,
                            reassociate_every=rc.reassociate_every,
                            map_decay=rc.map_decay,
                            frame_rate_hz=sc.rpm / 60.0)
@@ -690,44 +679,61 @@ class SlamPipeline:
     def _register_frame(self, pts: np.ndarray, mask: np.ndarray,
                         T_prior: se3.Pose) -> Optional[FrameRegistration]:
         """Scan-to-map registration against the ROI around the prior, on
-        the device: the exact nearest-mean correspondence of seven cells
-        through the ROI's dense index (or, with use_dense_index=False, the
-        binary-search lookup), re-associated every `reassociate_every`
-        iterations.  Returns the result read back, or None when the map
-        holds nothing around the prior yet.  A multi-device session
-        overrides it to register against its sharded map."""
+        the device, by `registration.method`: "gicp" with the exact
+        nearest-mean correspondence of seven cells through the ROI's
+        dense index (or, with use_dense_index=False, the binary-search
+        lookup), re-associated every `reassociate_every` iterations;
+        "d2d", the scan's voxel Gaussians against the ROI's; "ndt", the
+        scan's points against the ROI's voxel Gaussians (both with the
+        binary-search lookup; any other name registers by GICP, as in the
+        JAX package).  The scan and the
+        prior go up in one upload and the result comes back in one
+        readback.  Returns None when the map holds nothing around the
+        prior yet.  A multi-device session overrides it to register
+        against its sharded map."""
         rc = self.cfg.registration
-        if rc.method != "gicp":
-            raise ValueError(
-                f"registration.method={rc.method!r}: the port registers "
-                f"with point-to-plane GICP only; the D2D and NDT methods "
-                f"are not ported yet (ROADMAP slice 3a, item g)")
         prior_t = T_prior.t.numpy()
         roi = self.map.roi_grid(float(prior_t[0]), float(prior_t[1]))
         if roi is None:
             return None
         dev = self.device
         with self.timers.stage("register"):
-            target = gicp.plane_grid_from(
-                roi, min_points=rc.min_points_per_voxel,
-                min_planarity=rc.min_planarity)
-            if rc.use_dense_index:
-                dense = vx.build_dense_index(roi)
-            else:
-                dense, target = None, _stacked(target)
             # Points and prior in one upload.
             P = len(pts)
             buf = torch.as_tensor(np.concatenate(
                 [pts.reshape(-1), T_prior.q.numpy(), T_prior.t.numpy()]),
                 device=dev)
-            res = gicp.register(
-                buf[:3 * P].reshape(P, 3),
-                torch.as_tensor(mask, device=dev), target,
-                se3.Pose(buf[3 * P:3 * P + 4], buf[3 * P + 4:]), dense,
-                iterations=rc.max_iterations, damping=rc.damping,
-                huber_delta=rc.huber_delta,
-                max_dist=rc.max_correspondence_dist,
-                reassociate_every=rc.reassociate_every)
+            pts_dev = buf[:3 * P].reshape(P, 3)
+            mask_dev = torch.as_tensor(mask, device=dev)
+            prior = se3.Pose(buf[3 * P:3 * P + 4], buf[3 * P + 4:])
+            if rc.method == "d2d":
+                src = vx.build_grid(pts_dev, mask_dev, roi.origin,
+                                    roi.voxel_size,
+                                    capacity=rc.scan_voxel_capacity)
+                res = d2d.register_d2d(
+                    src, roi, d2d.usable_mask(
+                        roi, min_points=rc.min_points_per_voxel),
+                    prior, iterations=rc.max_iterations,
+                    damping=rc.damping, max_dist=rc.max_correspondence_dist)
+            elif rc.method == "ndt":
+                # NDT keeps its own damping (1e-4), as in the JAX package.
+                res = ndt.register(
+                    pts_dev, mask_dev, ndt.build_ndt_grid(
+                        roi, min_points=rc.min_points_per_voxel),
+                    prior, iterations=rc.max_iterations,
+                    max_dist=rc.max_correspondence_dist)
+            else:
+                target = gicp.plane_grid_from(
+                    roi, min_points=rc.min_points_per_voxel,
+                    min_planarity=rc.min_planarity)
+                dense = (vx.build_dense_index(roi) if rc.use_dense_index
+                         else None)
+                res = gicp.register(
+                    pts_dev, mask_dev, target, prior, dense,
+                    iterations=rc.max_iterations, damping=rc.damping,
+                    huber_delta=rc.huber_delta,
+                    max_dist=rc.max_correspondence_dist,
+                    reassociate_every=rc.reassociate_every)
             out = torch.cat([res.pose.q, res.pose.t,
                              res.n_matched.to(torch.float32)[None],
                              res.mean_error[None]]).cpu()
@@ -767,7 +773,10 @@ class SlamPipeline:
         res = self._register_frame(pts, mask, T_prior)
         if res is not None:
             n_matched, mean_error = res.n_matched, res.mean_error
-            if n_matched > rc.min_matched_points and np.isfinite(mean_error):
+            # d2d matches voxels; gicp and ndt match points.
+            min_matched = (rc.min_matched_voxels if rc.method == "d2d"
+                           else rc.min_matched_points)
+            if n_matched > min_matched and np.isfinite(mean_error):
                 T_est = res.pose
                 registered = True
 
