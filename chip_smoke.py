@@ -3,8 +3,10 @@ odometry, device full SLAM with its end-of-stream finalize, the
 user-facing pipeline from pcap to trajectory, landmarks and tiled map
 (batched, and per frame: slam_run's default mode, with each of its
 registration methods), the streaming odometry's fused and chained
-paths and slam_run --fast's engine, and the matrix-free PCG graph
-solvers that sessions above 2048 keyframes run.
+paths and slam_run --fast's engine, live mode over UDP (per frame and
+fast), the tools (slam_run --bev, inspect, the landmark extractors), and
+the matrix-free PCG graph solvers that sessions above 2048 keyframes
+run.
 
 Run on a machine with an NVIDIA H100, from the repository root or any
 other directory (the script puts its own directory first on sys.path):
@@ -107,14 +109,38 @@ code is non-zero:
                 with use_dense_index=False with phase pipeline's gates;
                 every kernel held against its plain version on these
                 paths' own inputs and timed at their first shape.
-  10. pcg     — solve_pcg at K = 16384 (16000 poses) and
+  10. live    — SlamPipeline.run_online on bench.py's drive at the
+                production width (512-packet batches), against the JAX
+                golden (tests/fixtures/live_golden_seed3.npz): the
+                golden's session through the scripted receiver
+                (ScriptedUdp: the InsPVA datagrams the port's
+                replay_ins_txt builds from the INS log, equal to the
+                golden's, then the pcap's LiDAR packets), per frame and
+                fast, each + finalize(), with phase per_frame's gates and
+                the health dicts and counts equal, the registration
+                kernels launched and held against their plain versions on
+                these runs' inputs; the same datagrams over real loopback
+                UDP (the packet pump's receiver and sender), INS ahead and
+                LiDAR at the sensor's pace, per frame: none lost or
+                dropped, frames, times and poses equal to the bit to the
+                scripted run; then measure_live_loopback (INS interleaved
+                at 100 Hz): fast at 1x and 2x, per frame at 1x, none lost
+                or dropped, sustained pkt/s and the batch feed time beside
+                the batch period.
+  11. apps    — slam_run (per frame) with --bev and --checkpoint-dir on
+                the drive's pcap, inspect --checkpoint (every frame
+                fetched, 0 failures) and inspect --pcap --frame 3 with
+                every dump (point counts equal the frame's), and
+                extract_landmarks on the checkpoint map's largest patch
+                on the card against a CPU run.
+  12. pcg     — solve_pcg at K = 16384 (16000 poses) and
                 solve_pcg_landmarks at K = 4096 alone, at the production
                 8 GN x 96 CG iterations, twice each, against the JAX
                 golden (tests/fixtures/pcg_golden.npz) and the JAX tests'
                 gates; time, launches, syncs and their call sites, peak
                 memory; the device finalize's proposal and solve at the
                 keyframe ring's cap of 16384.
-  11. long_drive — tests/test_fullslam.py's unbounded session (44 s at
+  13. long_drive — tests/test_fullslam.py's unbounded session (44 s at
                 3600 rpm, ~2640 keyframes in a 4096-row ring, every solve
                 on PCG) once through SlamPipeline on the card, every stage
                 synchronized, against the JAX golden
@@ -125,7 +151,8 @@ Then one JSON line with the kernel records (launches: one pipeline run,
 the chain kernel's one long-drive run; per_frame_launches: one per_frame
 run; per_frame_max_abs_err: the largest |Δ| from the plain version on the
 per_frame path's own inputs; paths_launches and paths_max_abs_err: the
-same for each part of phase paths), and last the result line.
+same for each part of phase paths; live_launches and live_max_abs_err:
+the same for each run of phase live), and last the result line.
 Imports nothing of JAX or of the JAX package, and checks that before the
 result line.
 """
@@ -262,6 +289,37 @@ LONG_DRIVE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
 # over 0.54-1.09 m, so the bound, golden + 0.15 m = 0.926 m, leaves
 # 0.205 m (28%) above the reading for a change that reorders sums.
 LONG_DRIVE_ATE_M = 0.15
+LIVE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                           "live_golden_seed3.npz")
+# run_online's ports in a scripted session (no socket is bound there).
+LIVE_PORTS = {"lidar": 2368, "ins": 6777, "position": 8308}
+# LiDAR packets a scripted receiver returns a poll: no divisor of the
+# batch sizes, so batches form across polls.
+LIVE_CHUNK = 300
+# A scripted session ends after this idle time (its packets are all
+# there at once).
+LIVE_IDLE_S = 0.2
+# Closures the live drives must accept in all (run_online + finalize()).
+LIVE_MIN_CLOSURES = {"full": 3, "small": 0, "gps": 0}
+# The real-loopback runs: INS sent ahead, 2 ms a datagram; the session's
+# idle timeout covers the gap between the INS burst and the first LiDAR
+# packet.
+LIVE_INS_GAP_S = 0.002
+LIVE_LOOPBACK_IDLE_S = 2.5
+# The post landmarks' greedy clustering (graph/landmark_assoc.py) decides
+# each detection by its distance to a cluster against a radius; a
+# decision the reference took closer than this to the radius may go the
+# other way in the port, whose keyframe poses differ from the reference's
+# by up to ~1 mm (float rounding in decode and registration).  The live
+# golden records each session's smallest margin ("<name>_assoc_margin").
+ASSOC_MARGIN_M = 1e-3
+# Where that margin is under ASSOC_MARGIN_M, the finalized positions'
+# bound in x, y: the live "full" per-frame session, whose one detection
+# clustered the other way moves frames 10-30 by 5.45 cm after finalize's
+# landmark solve (the card and the CPU alike; run_online's own
+# trajectory 1.0 mm from the golden's), and CPU reruns move its live
+# stream by up to 3.8 mm.  8 cm leaves 2.2 cm above the reading.
+ASSOC_FLIP_LIMIT_M = 0.08
 
 
 def _quat_mul_np(a, b):
@@ -1153,14 +1211,16 @@ def _check_fullslam(host, eng, seq, drive, gold, launches, device):
 
 def write_pipeline_drive(drive: dict, model: str, out_dir: str):
     """A golden drive as bench.py::_make_drive writes it, with the port's
-    writers: the sequence, its pcap (position packets every 1 s) and INS
-    log, the INS positions drifted in +y."""
+    writers: the sequence (on a circle, or with "circle": None the
+    simulator's default trajectory), its pcap (position packets every 1 s)
+    and INS log, the INS positions drifted in +y."""
     from veloslam_tpu_torch.io import packets as pk
     from veloslam_tpu_torch.io import simulate as sim
+    circle = drive.get("circle")
     seq = sim.generate_sequence(
         duration_s=drive["duration_s"], model=model, seed=drive["seed"],
         world=sim.World.demo(**drive["world"]),
-        trajectory=sim.circle_trajectory(**drive["circle"]))
+        trajectory=sim.circle_trajectory(**circle) if circle else None)
     paths = sim.write_sequence(seq, out_dir, name=drive["name"])
     ins = pk.read_ins_txt(paths["ins"])
     ts = (ins["t_us"] - ins["t_us"][0]) * 1e-6
@@ -1377,8 +1437,11 @@ def check_perframe(pipe, res, mid, seq, gold, name: str,
     batching changes ("<name>_self_spread", paths_golden_seed3's NDT on
     the full drive), the gates that follow from the trajectory
     (keyframes, closures, landmarks, positions) are not applied: frames
-    and times, the registered flags and the ATE are.  Raises on a
-    failure; returns a summary."""
+    and times, the registered flags and the ATE are.  Where the golden
+    records that its landmark clustering took a decision within
+    ASSOC_MARGIN_M of the radius ("<name>_assoc_margin", live_golden_seed3's
+    sessions), the finalized positions are held within ASSOC_FLIP_LIMIT_M
+    in x, y instead of 5 cm.  Raises on a failure; returns a summary."""
     from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
 
     def g(k):
@@ -1393,6 +1456,9 @@ def check_perframe(pipe, res, mid, seq, gold, name: str,
     spread = (float(g("self_spread")) if f"{name}_self_spread" in gold
               else 0.0)
     steady = spread <= 0.05
+    margin = (float(g("assoc_margin")) if f"{name}_assoc_margin" in gold
+              else np.inf)
+    clustered = margin >= ASSOC_MARGIN_M
     if steady and not np.array_equal(res["keyframe_times_us"],
                                      g("keyframe_times_us")):
         fails.append(f"keyframe times ({res['n_keyframes']} keyframes, "
@@ -1419,9 +1485,10 @@ def check_perframe(pipe, res, mid, seq, gold, name: str,
         off = float(np.linalg.norm(pos[:, :2] - g("positions")[:, :2],
                                    axis=1).max())
         off_z = float(np.abs(pos[:, 2] - g("positions")[:, 2]).max())
-    if steady and not (off <= 0.05 and off_z <= Z_LIMIT_M):
-        fails.append(f"trajectory {off} m from the golden in x, y, {off_z} "
-                     f"m in z")
+    xy_limit = 0.05 if clustered else ASSOC_FLIP_LIMIT_M
+    if steady and not (off <= xy_limit and off_z <= Z_LIMIT_M):
+        fails.append(f"trajectory {off} m from the golden in x, y (limit "
+                     f"{xy_limit} m), {off_z} m in z")
     truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
                                   seq["ins_pos"])
     rmse = ate(pos[:, :2], truth[:, :2], align=False)["rmse"]
@@ -1442,6 +1509,11 @@ def check_perframe(pipe, res, mid, seq, gold, name: str,
             f"closures, landmarks and positions are shown, not gated "
             f"(keyframes {res['n_keyframes']}, golden "
             f"{int(g('n_keyframes'))}); ")
+    if not clustered:
+        held += (f"the golden's landmark clustering decided a detection "
+                 f"{margin * 1e6:.0f} um from its radius, so the finalized "
+                 f"positions are held within {ASSOC_FLIP_LIMIT_M} m in x, "
+                 f"y; ")
     return (f"{held}{n} frames ({int(reg.sum())} registered, golden "
             f"{int(g('registered').sum())}), {res['n_keyframes']} "
             f"keyframes, closures {len(mid)} mid-session + "
@@ -1989,6 +2061,507 @@ def phase_paths(device, smi: str, size: str = "full") -> tuple:
     return launches, worst
 
 
+class ScriptedUdp:
+    """A recorded live session standing in for io.udp.UdpReceiver in
+    SlamPipeline.run_online, the port's or the JAX package's (install it
+    with `scripted_udp`): `streams` maps a port to its datagrams, a list
+    of (payload bytes, receive time µs).  Every other port's datagrams
+    come first, each port's in polls of up to max_packets; then the LiDAR
+    port's in chunks of `chunk`; then empty polls, so the session ends
+    at run_online's idle timeout.  With the time base latched on the
+    first INS datagram or position packet and batches of a fixed size,
+    run_online's result depends only on the datagrams, not on how polls
+    chunk them: the deterministic stand-in for real UDP."""
+
+    def __init__(self, streams: dict, lidar_port: int,
+                 chunk: int = LIVE_CHUNK):
+        self.queues = {p: list(v) for p, v in streams.items()}
+        self.lidar_port = lidar_port
+        self.chunk = chunk
+
+    def _take(self, port: int, max_packets: int) -> list:
+        q = self.queues.get(port, [])
+        n = max_packets
+        if port == self.lidar_port:
+            if any(v for p, v in self.queues.items() if p != port):
+                return []
+            n = min(self.chunk, max_packets)
+        self.queues[port] = q[n:]
+        return q[:n]
+
+    def receiver_class(self):
+        """A UdpReceiver-shaped class over this session."""
+        script = self
+
+        class ScriptedReceiver:
+            dropped = 0
+
+            def __init__(self, port, payload_size, capacity=16384,
+                         force_python=False, variable=False):
+                self.port, self.payload_size = port, payload_size
+
+            def poll_var(self, max_packets=4096):
+                items = script._take(self.port, max_packets)
+                pkts = np.zeros((len(items), self.payload_size), np.uint8)
+                lens = np.zeros(len(items), np.int32)
+                for i, (d, _) in enumerate(items):
+                    pkts[i, :len(d)] = np.frombuffer(d, np.uint8)
+                    lens[i] = len(d)
+                return pkts, lens, np.asarray([t for _, t in items],
+                                              np.int64)
+
+            def poll(self, max_packets=4096):
+                pkts, _, times = self.poll_var(max_packets)
+                return pkts, times
+
+            def close(self):
+                pass
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                self.close()
+
+        return ScriptedReceiver
+
+
+@contextlib.contextmanager
+def scripted_udp(udp_module, script: ScriptedUdp):
+    """While in the block, `udp_module.UdpReceiver` (io/udp.py of either
+    package, which run_online looks up when it runs) is the script's."""
+    saved = udp_module.UdpReceiver
+    udp_module.UdpReceiver = script.receiver_class()
+    try:
+        yield script
+    finally:
+        udp_module.UdpReceiver = saved
+
+
+def ins_payloads(replay_ins_txt, udp_module, ins_path: str, origin) -> list:
+    """The InsPVA datagrams `replay_ins_txt` (apps/replay.py of either
+    package) sends for an INS text log, captured from `udp_module.
+    send_struct` instead of sent, unpaced."""
+    sent = []
+    saved = udp_module.send_struct
+    udp_module.send_struct = (lambda payload, dest_ip="127.0.0.1", port=0:
+                              sent.append(bytes(payload)))
+    try:
+        replay_ins_txt(ins_path, "127.0.0.1", 0, origin,
+                       rate_hz=float("inf"))
+    finally:
+        udp_module.send_struct = saved
+    return sent
+
+
+def live_streams(drive: dict, paths: dict, ins: list) -> dict:
+    """A live drive's datagrams by port, as ScriptedUdp takes them: the
+    pcap's LiDAR packets at their record times; with drive["ins"] the
+    InsPVA payloads `ins` (receive time 0), with drive["position"] the
+    pcap's position packets."""
+    from veloslam_tpu_torch.io.pcap import (read_lidar_packets,
+                                            read_position_packets)
+    pkts, times, _ = read_lidar_packets(paths["pcap"])
+    streams = {LIVE_PORTS["lidar"]: [(p.tobytes(), int(t))
+                                     for p, t in zip(pkts, times)]}
+    if drive["ins"]:
+        streams[LIVE_PORTS["ins"]] = [(p, 0) for p in ins]
+    if drive["position"]:
+        pos, ptimes = read_position_packets(paths["pcap"])
+        streams[LIVE_PORTS["position"]] = [(p.tobytes(), int(t))
+                                           for p, t in zip(pos, ptimes)]
+    return streams
+
+
+def run_live_scripted(pipe, udp_module, streams: dict, fast: bool,
+                      origin) -> tuple:
+    """One scripted live session of `pipe` (either package's
+    SlamPipeline): run_online over `streams`, then finalize().  Returns
+    (the run_online result, the closures accepted before finalize, the
+    finalize result)."""
+    script = ScriptedUdp(streams, LIVE_PORTS["lidar"])
+    with scripted_udp(udp_module, script):
+        live = pipe.run_online(lidar_port=LIVE_PORTS["lidar"],
+                               ins_port=LIVE_PORTS["ins"],
+                               position_port=LIVE_PORTS["position"],
+                               origin_llh_deg=origin,
+                               idle_timeout_s=LIVE_IDLE_S, fast=fast)
+    mid = list(pipe.closures)
+    return live, mid, pipe.finalize()
+
+
+def assoc_margin(q, t, keyframe_posts, radius: float) -> float:
+    """The smallest |distance - radius| over the decisions that
+    graph/landmark_assoc.py::associate_and_add's greedy clustering takes
+    on these keyframe poses and detections (its arithmetic, float32):
+    how near the clustering came to deciding otherwise."""
+    centers, counts, worst = [], [], np.inf
+    for k, dets in enumerate(keyframe_posts):
+        if k >= len(q) or len(dets) == 0:
+            continue
+        w0, x, y, z = (float(v) for v in q[k])
+        R = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w0 * z),
+             2 * (x * z + w0 * y)],
+            [2 * (x * y + w0 * z), 1 - 2 * (x * x + z * z),
+             2 * (y * z - w0 * x)],
+            [2 * (x * z - w0 * y), 2 * (y * z + w0 * x),
+             1 - 2 * (x * x + y * y)]], np.float32)
+        world = (np.asarray(dets, np.float32) @ R.T
+                 + np.asarray(t[k], np.float32))
+        for wp in world:
+            for c_idx, c in enumerate(centers):
+                dist = np.linalg.norm(wp[:2] - c[:2])
+                worst = min(worst, abs(float(dist) - radius))
+                if dist < radius:
+                    n = counts[c_idx]
+                    centers[c_idx] = (c * n + wp) / (n + 1)
+                    counts[c_idx] += 1
+                    break
+            else:
+                centers.append(wp.copy())
+                counts.append(1)
+    return worst
+
+
+def check_live_stream(where: str, live: dict, gold, key: str) -> float:
+    """The trajectory run_online returns (before finalize) against the
+    golden's: frames and times equal, positions within 5 cm in x, y and
+    Z_LIMIT_M in z.  Returns the x, y offset."""
+    want = gold[f"{key}_stream_positions"]
+    pos = live["positions"]
+    if not (np.array_equal(live["times_us"], gold[f"{key}_stream_times_us"])
+            and pos.shape == want.shape and np.isfinite(pos).all()):
+        raise AssertionError(f"{where}: run_online's frames or times differ "
+                             f"from the golden's")
+    off = float(np.linalg.norm(pos[:, :2] - want[:, :2], axis=1).max())
+    off_z = float(np.abs(pos[:, 2] - want[:, 2]).max())
+    if not (off <= 0.05 and off_z <= Z_LIMIT_M):
+        raise AssertionError(f"{where}: run_online's trajectory {off} m from "
+                             f"the golden's in x, y, {off_z} m in z")
+    return off
+
+
+def stream_ate(times_us, positions, seq) -> float:
+    """2-D ATE (RMSE, unaligned) of a trajectory against the drive's
+    truth at its frame times."""
+    from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
+    truth = interpolate_positions(np.asarray(times_us), seq["ins_t_us"],
+                                  seq["ins_pos"])
+    return ate(np.asarray(positions)[:, :2], truth[:, :2],
+               align=False)["rmse"]
+
+
+def live_counts(pipe, live: dict, res: dict) -> dict:
+    """What a live session must reproduce exactly besides its frames:
+    the INS and GPS health, the IMU log's length and live_stats' counts."""
+    keep = ("lidar_packets", "ins_datagrams", "position_packets", "batches",
+            "lidar_dropped", "ins_dropped")
+    return {"ins_health": res["ins_health"], "gps_health": res["gps_health"],
+            "imu_log": len(pipe.imu_log),
+            "live_stats": {k: live["live_stats"][k] for k in keep}}
+
+
+def check_live_counts(where: str, got: dict, want: dict) -> None:
+    """Health dicts and counts equal (floats as JSON gives them back)."""
+    got = json.loads(json.dumps(got))
+    if got != want:
+        raise AssertionError(f"{where}: live counts {got}, golden {want}")
+
+
+def _live_gate(where: str, launches: dict, device) -> None:
+    """The registration kernels launched on a live path, the chain kernel
+    not (K stays under DENSE_MAX_POSES); on the CPU none."""
+    if device.type != "cuda":
+        _check_launches(where, launches, {}, device)
+        return
+    if not (all(launches[k] for k in REG_KERNELS)
+            and launches["chain_factor"] == launches["chain_solve"] == 0):
+        raise AssertionError(f"{where}: launches {launches}: want each of "
+                             f"{REG_KERNELS} > 0 and no chain launch")
+
+
+def _loopback_ins_ahead(device, slam, origin, ins: list, pkts,
+                        pkt_per_s: float) -> tuple:
+    """run_online per frame over real loopback UDP with the native
+    receiver and sender: every InsPVA datagram first (LIVE_INS_GAP_S
+    apart), then the LiDAR packets at `pkt_per_s` on average
+    (udp.replay_packets).  Returns (pipeline, result, packets sent, the
+    LiDAR sender's udp.paced stats, s from the last packet sent to the
+    session's end less the idle timeout)."""
+    import threading
+
+    from veloslam_tpu_torch.apps import replay
+    from veloslam_tpu_torch.io import udp
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    ports = [replay.free_udp_port() for _ in range(3)]
+    sent = {}
+
+    def send():
+        for p in ins:
+            udp.send_struct(p, "127.0.0.1", ports[1])
+            time.sleep(LIVE_INS_GAP_S)
+        sent["lidar"] = udp.replay_packets(pkts, "127.0.0.1", ports[0],
+                                           1e6 / pkt_per_s, stats=sent)
+        sent["done"] = time.monotonic()
+
+    sender = threading.Thread(target=send, daemon=True)
+    pipe = SlamPipeline(slam, device=device)
+    live = pipe.run_online(lidar_port=ports[0], ins_port=ports[1],
+                           position_port=ports[2], origin_llh_deg=origin,
+                           idle_timeout_s=LIVE_LOOPBACK_IDLE_S,
+                           on_ready=sender.start)
+    end = time.monotonic()
+    sender.join(timeout=60)
+    if sender.is_alive() or "lidar" not in sent:
+        raise AssertionError("live loopback: the sender did not finish")
+    return (pipe, live, sent["lidar"], sent,
+            end - sent["done"] - LIVE_LOOPBACK_IDLE_S)
+
+
+def phase_live(device, smi: str, name: str = "full") -> tuple:
+    """Live mode (SlamPipeline.run_online) on bench.py's drive (or, for a
+    CPU rehearsal, `name="small"`), against live_golden_seed3.npz:
+
+    1. Scripted: the JAX golden's session through ScriptedUdp, per frame
+       and fast, each + finalize(), with phase per_frame's gates, the
+       health dicts and counts equal; the registration kernels launched
+       and each held against its plain version on the inputs these runs
+       gave it.  The InsPVA payloads are the port's replay_ins_txt's,
+       equal to the golden's.
+    2. Real loopback, INS ahead, per frame: the same datagrams over
+       localhost UDP (the packet pump's receiver and sender), LiDAR at
+       the sensor's pace; none lost or dropped, and the frames, times
+       and poses equal to the bit to step 1's run_online.
+    3. Real loopback, INS interleaved at 100 Hz (measure_live_loopback,
+       both senders on one clock): fast at 1× and 2× the sensor's pace,
+       then per frame at 1×; none lost or dropped, every INS datagram
+       received, frames at least the golden's - 1, every position
+       finite, run_online's 2-D ATE against the drive's truth at most
+       the golden session's + 0.02 m; sustained pkt/s, the INS sender's
+       Hz, both senders' worst lateness and the batch feed time beside
+       the batch period.
+
+    Returns ({part: launches}, the largest |Δ| per kernel)."""
+    import tempfile
+
+    from veloslam_tpu_torch.apps import replay
+    from veloslam_tpu_torch.config import SlamConfig
+    from veloslam_tpu_torch.io import udp
+    from veloslam_tpu_torch.io.pcap import read_lidar_packets
+    from veloslam_tpu_torch.runtime.odometry import packets_per_second
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    gold = np.load(LIVE_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    origin = tuple(cfg["origin"])
+    drive = {d["name"]: d for d in cfg["drives"]}[name]
+    slam = SlamConfig.from_dict(drive["slam"])
+    launches, worst, scripted = {}, dict.fromkeys(REG_KERNELS, 0.0), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, seq = write_pipeline_drive(drive, cfg["model"], tmp)
+        ins = ins_payloads(replay.replay_ins_txt, udp, paths["ins"], origin)
+        if ins != [r.tobytes() for r in gold[f"{name}_ins_payloads"]]:
+            raise AssertionError("live: replay_ins_txt's InsPVA payloads "
+                                 "differ from the JAX package's")
+        streams = live_streams(drive, paths, ins)
+        for mode in drive["modes"]:
+            key = f"{name}_{mode}"
+            pipe = SlamPipeline(slam, device=device)
+            _reset_launches()
+            t0 = time.perf_counter()
+            with capturing_kernel_inputs({}, latest=True) as seen:
+                live, mid, res = run_live_scripted(pipe, udp, streams,
+                                                   mode == "fast", origin)
+            wall = time.perf_counter() - t0
+            got = launches[f"scripted_{mode}"] = _launches()
+            stream_off = check_live_stream(f"live {key}", live, gold, key)
+            summary = check_perframe(pipe, res, mid, seq, gold, key,
+                                     min_closures=LIVE_MIN_CLOSURES[name])
+            check_live_counts(f"live {key}", live_counts(pipe, live, res),
+                              json.loads(str(gold[f"{key}_live"])))
+            _live_gate(f"live scripted {mode}", got, device)
+            if device.type == "cuda":
+                errs = check_captured(
+                    seen, smi, f"live {mode}",
+                    want=CAPTURED if mode == "per_frame"
+                    else ("gn_iteration", "gather_i32"))
+                for k, v in errs.items():
+                    worst[k] = max(worst[k], v)
+            del seen
+            scripted[mode] = live
+            print(f"[live] scripted {mode}: run_online's trajectory "
+                  f"{stream_off:.2e} m from the golden's before finalize; "
+                  f"after it {summary}; health and counts "
+                  f"equal to the golden's ({live['live_stats']}); "
+                  f"run_online + finalize {wall:.3f} s with the kernel "
+                  f"inputs captured; launches {got}; {smi}", flush=True)
+        pkts, _, _ = read_lidar_packets(paths["pcap"])
+        pps = packets_per_second(cfg["model"])
+        B = slam.pipeline.packets_per_batch
+        if drive["ins"]:
+            _reset_launches()
+            pipe, live, sent, pacing, lag = _loopback_ins_ahead(
+                device, slam, origin, ins, pkts, pps)
+            got = launches["loopback_ins_ahead_per_frame"] = _launches()
+            st = live["live_stats"]
+            ref = scripted["per_frame"]
+            same = all(np.array_equal(live[k], ref[k]) for k in
+                       ("times_us", "positions", "quaternions"))
+            if not (sent - st["lidar_packets"] == 0
+                    and st["lidar_dropped"] == 0 and st["ins_dropped"] == 0
+                    and st["ins_datagrams"] == len(ins) and same):
+                raise AssertionError(
+                    f"live loopback, INS ahead: sent {sent}, stats {st}, "
+                    f"{len(ins)} INS sent; equal to the scripted run to "
+                    f"the bit: {same}")
+            _live_gate("live loopback INS ahead", got, device)
+            print(f"[live] loopback, INS ahead, per frame at 1x "
+                  f"({pps:.1f} pkt/s, {B / pps * 1e3:.1f} ms a "
+                  f"{B}-packet batch): {sent} sent in "
+                  f"{pacing['send_s']:.3f} s ({(sent - 1) / pacing['send_s']:.1f}"
+                  f" pkt/s, at worst {pacing['max_late_ms']:.3f} ms behind "
+                  f"the sender's clock), 0 lost, 0 dropped; "
+                  f"{live['n_frames']} frames, times and poses equal to the "
+                  f"bit to the scripted run; batch feed ms mean "
+                  f"{st['batch_feed_ms_mean']} max "
+                  f"{st['batch_feed_ms_max']:.3f}; the session ended "
+                  f"{lag:.3f} s after the last packet was sent (idle "
+                  f"timeout excluded); launches {got}; {smi}", flush=True)
+        if drive["ins"] and "fast" in drive["modes"]:
+            for mode, rate in (("fast", 1.0), ("fast", 2.0),
+                               ("per_frame", 1.0)):
+                _reset_launches()
+                r = replay.measure_live_loopback(
+                    rate=rate, fast=mode == "fast", warm=False,
+                    origin=origin, device=device, pcap=paths["pcap"],
+                    ins=paths["ins"], config=slam)
+                part = f"loopback_interleaved_{mode}_{rate:g}x"
+                got = launches[part] = _launches()
+                times, pos = r.pop("times_us"), r.pop("positions")
+                key = f"{name}_{mode}"
+                want = int(gold[f"{key}_n_frames"])
+                rmse = stream_ate(times, pos, seq)
+                limit = stream_ate(gold[f"{key}_stream_times_us"],
+                                   gold[f"{key}_stream_positions"],
+                                   seq) + 0.02
+                if not (r["lost"] == 0 and r["receiver_dropped"] == 0
+                        and r["received_ins"] == r["sent_ins"]
+                        and r["n_frames"] >= want - 1
+                        and np.isfinite(pos).all() and rmse <= limit):
+                    raise AssertionError(
+                        f"live {part}: {r}; 2-D ATE {rmse} m (limit "
+                        f"{limit} m, golden {want} frames)")
+                _live_gate(f"live {part}", got, device)
+                print(f"[live] loopback, INS interleaved at 100 Hz x "
+                      f"{rate:g}, {mode}: {r}; {r['n_frames']} frames "
+                      f"(golden {want}), all finite; run_online's 2-D ATE "
+                      f"{rmse:.4f} m (limit {limit:.4f}, the golden "
+                      f"session's + 0.02); launches {got}; {smi}",
+                      flush=True)
+    return launches, worst
+
+
+def phase_apps(device, smi: str, name: str = "full") -> None:
+    """The port's tools on bench.py's drive (or `name="small"`, a CPU
+    rehearsal), as a user runs them, on `device`:
+    `slam_run` (per frame, the default mode) with `--bev` and
+    `--checkpoint-dir`: the BEV HTML holds the run's trajectory rows, the
+    registration kernels launched; `inspect --checkpoint` fetches every
+    frame of the checkpoint with 0 failures; `inspect --pcap --frame 3
+    --bev --pcd --txt`: the PCD header's and the text dump's point counts
+    equal the frame's mask.sum(), the BEV image written; and
+    `extract_landmarks` on the checkpoint map's largest patch on the
+    device against a CPU run: counts equal, plane normals within 1e-4."""
+    import io
+    import re
+    import tempfile
+
+    from veloslam_tpu_torch.apps import inspect as insp
+    from veloslam_tpu_torch.apps import slam_run
+    from veloslam_tpu_torch.config import MapConfig
+    from veloslam_tpu_torch.map import landmarks as lm
+    from veloslam_tpu_torch.map.voxelmap import VoxelMap
+    gold = np.load(PERFRAME_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = {d["name"]: d for d in cfg["drives"]}[name]
+
+    def run(main, argv) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        if rc != 0:
+            raise AssertionError(f"apps: {argv} exited {rc}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, _ = write_pipeline_drive(drive, cfg["model"], tmp)
+        out, ck = os.path.join(tmp, "out"), os.path.join(tmp, "ckpt")
+        _reset_launches()
+        t0 = time.perf_counter()
+        run(slam_run.main, ["--pcap", paths["pcap"], "--ins", paths["ins"],
+                            "--out-dir", out, "--bev", "--checkpoint-dir",
+                            ck, "--device", device.type])
+        wall = time.perf_counter() - t0
+        _live_gate("apps slam_run", _launches(), device)
+        traj = np.loadtxt(os.path.join(out, "trajectory.txt"), ndmin=2)
+        html = open(os.path.join(out, "bev.html")).read()
+        data = json.loads(re.search(r"const D = (\{.*?\});\n", html,
+                                    re.S).group(1))
+        rows = np.asarray([[p["x"], p["y"]] for p in data["traj"]])
+        if not (len(rows) == len(traj) > 0 and np.array_equal(
+                rows, np.round(traj[:, 1:3], 3))
+                and data["stats"]["frames"] == len(traj)):
+            raise AssertionError(f"apps: the BEV HTML holds {len(rows)} "
+                                 f"rows, the trajectory {len(traj)}")
+        text = run(insp.main, ["--checkpoint", ck])
+        m = re.search(r"(\d+) frames indexed", text)
+        f = re.search(r"failures (\d+)", text)
+        fetched = len(re.findall(r"^frame \d+ @", text, re.M))
+        if not (m and f and int(f.group(1)) == 0
+                and int(m.group(1)) == fetched == len(traj)):
+            raise AssertionError(f"apps: inspect --checkpoint: {text[:400]}")
+        dump = os.path.join(tmp, "f3")
+        text3 = run(insp.main, ["--pcap", paths["pcap"], "--ins",
+                                paths["ins"], "--frame", "3", "--bev", dump,
+                                "--pcd", dump + ".pcd", "--txt",
+                                dump + ".txt", "--device", device.type])
+        n = int(re.search(r"^frame 3 @ \d+ us: (\d+) points", text3,
+                          re.M).group(1))
+        header = open(dump + ".pcd").read(400)
+        bev = re.search(r"bev -> (\S+)", text3).group(1)
+        n_txt = sum(1 for _ in open(dump + ".txt"))
+        if not (f"\nPOINTS {n}\n" in header and n_txt == n > 0
+                and os.path.getsize(bev) > 0):
+            raise AssertionError(f"apps: inspect --pcap frame 3: {n} points,"
+                                 f" PCD header {header!r}, {n_txt} text "
+                                 "rows")
+        mcfg = MapConfig()
+        vmap = VoxelMap.load(os.path.join(ck, "map"), mcfg, device="cpu")
+        keys = sorted(set(vmap._patches) | set(vmap._spilled))
+        patch = max((vmap._materialize(k, create=False) for k in keys),
+                    key=lambda p: p.n_voxels)
+        a = lm.extract_landmarks(patch, mcfg.voxel_size, device=device)
+        b = lm.extract_landmarks(patch, mcfg.voxel_size, device="cpu")
+        counts = {k: (len(x), len(y)) for (k, x), y in zip(
+            a.to_arrays().items(), b.to_arrays().values())}
+        d_n = (float(np.abs(a.planes[:, :3] - b.planes[:, :3]).max())
+               if len(a.planes) and len(a.planes) == len(b.planes) else 0.0)
+        if any(x != y for x, y in counts.values()) or d_n > 1e-4 or not (
+                np.array_equal(a.posts, b.posts)):
+            raise AssertionError(f"apps: extract_landmarks on {device} vs "
+                                 f"the CPU: counts {counts}, normals {d_n}")
+    print(f"[apps] slam_run --bev --checkpoint-dir ({len(traj)} frames, "
+          f"{wall:.2f} s with the process's first pcap and BEV writes): "
+          f"the BEV HTML holds every trajectory row; inspect --checkpoint "
+          f"fetched {fetched} frames, 0 failures; inspect --pcap --frame 3: "
+          f"{n} points in the PCD header and the text dump, BEV "
+          f"{os.path.basename(bev)}; extract_landmarks on a "
+          f"{patch.n_voxels}-voxel patch on {device} equal to the CPU's "
+          f"(posts {len(a.posts)}, planes {len(a.planes)}, complexes "
+          f"{len(a.cplx_meta)}; normals within {d_n:.2e}); {smi}",
+          flush=True)
+
+
 def chain_inputs(K: int, device, seed: int = 11):
     """The chain kernel's inputs as the solver makes them: D (the 1e6
     gauge on pose 0, 1e-4 damping, the 2% floor) and B of a drifted chain
@@ -2496,6 +3069,8 @@ def main() -> int:
     launches = phase_pipeline(device, smi, fullslam_launches)
     perframe_launches, perframe_errs = phase_per_frame(device, smi)
     paths_launches, paths_errs = phase_paths(device, smi)
+    live_launches, live_errs = phase_live(device, smi)
+    phase_apps(device, smi)
     phase_pcg(device, smi)
     long_launches = phase_long_drive(device, smi)
     loaded = sorted(m for m in sys.modules
@@ -2507,7 +3082,10 @@ def main() -> int:
     def paths(name):
         return {"paths_launches": {part: got[name] for part, got in
                                    paths_launches.items()},
-                "paths_max_abs_err": paths_errs[name]}
+                "paths_max_abs_err": paths_errs[name],
+                "live_launches": {part: got[name] for part, got in
+                                  live_launches.items()},
+                "live_max_abs_err": live_errs[name]}
 
     kernels = [
         {"name": "fused_normal_equations", "route": "cuda",
@@ -2538,6 +3116,9 @@ def main() -> int:
          + perframe_launches["chain_solve"],
          "paths_launches": {part: got["chain_factor"] + got["chain_solve"]
                             for part, got in paths_launches.items()},
+         "live_launches": {part: got["chain_factor"] + got["chain_solve"]
+                           for part, got in live_launches.items()},
+         "live_max_abs_err": None,       # not launched on the live path
          **chain_record},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -101,7 +101,7 @@ def test_calibration_tables_equal(name):
 
 def test_constants_equal():
     names = [k for k in vars(const) if k.isupper()]
-    assert len(names) == 20
+    assert len(names) == 24
     for k in names:
         assert getattr(const, k) == getattr(jconst, k), k
 
@@ -169,16 +169,20 @@ def test_ate_and_interpolate_positions_equal(seqs):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (the registration methods
-    among them) loads nothing of jax and nothing of the JAX package."""
+    """Importing every module of the port (the registration methods, live
+    mode's UDP, INS and packet-pump modules and the tools among them)
+    loads nothing of jax and nothing of the JAX package."""
     code = (
         "import sys, pkgutil, importlib, veloslam_tpu_torch as p\n"
         "names = set()\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "    names.add(m.name)\n"
-        "want = {'veloslam_tpu_torch.registration.' + m\n"
-        "        for m in ('d2d', 'ndt', 'gicp', 'voxel')}\n"
+        "want = {'veloslam_tpu_torch.' + m for m in (\n"
+        "    'registration.d2d', 'registration.ndt', 'registration.gicp',\n"
+        "    'registration.voxel', 'io.udp', 'io.ins', 'io.native',\n"
+        "    'apps.replay', 'apps.inspect', 'apps.slam_run',\n"
+        "    'utils.viewer', 'utils.dumps', 'map.landmarks')}\n"
         "assert want <= names, sorted(want - names)\n"
         "top = ('jax', 'jaxlib', 'veloslam_tpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in top)\n"

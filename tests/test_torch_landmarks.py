@@ -8,9 +8,14 @@ curve, a ground plane and a wall whose columns form a run (rejected as
 posts), with 2 cm noise.  Detections per scan equal (they are the same
 float64 numpy arithmetic); the graphs after association hold equal
 landmarks and observations, in the same order; extract_posts and the
-Landmarks record round trip equal."""
+Landmarks record round trip equal.  The other extractors on
+tests/test_map.py's scenes: plane, complex and post landmarks of every
+map patch (planes within 1e-5: float32 eigen analysis), random plane
+voxels, the connected components and the ground marks of painted
+stripes."""
 
 import numpy as np
+import pytest
 
 from torch_helpers import small_threads  # noqa: F401
 from veloslam_tpu.graph import landmark_assoc as jla
@@ -111,3 +116,110 @@ def test_extract_posts_and_landmarks_record_equal():
     jboth = jboth.concat(jboth)
     for a, b in zip(both.to_arrays().values(), jboth.to_arrays().values()):
         np.testing.assert_array_equal(a, b)
+
+
+# --- the other extractors (tests/test_map.py's cases) -----------------------
+
+def _complex_world_map():
+    """tests/test_map.py::test_complex_extraction's scene in a JAX
+    VoxelMap: a 2 × 1.5 × 1.2 m blob, flat ground and a thin post."""
+    from veloslam_tpu.config import MapConfig
+    from veloslam_tpu.map.voxelmap import VoxelMap
+    rng = np.random.default_rng(11)
+    blob = rng.uniform([5.0, 3.0, 0.0], [7.0, 4.5, 1.2], (4000, 3))
+    ground = np.stack([rng.uniform(-10, 15, 8000),
+                       rng.uniform(-10, 15, 8000),
+                       rng.normal(0, 0.02, 8000)], -1)
+    ang = rng.uniform(0, 2 * np.pi, 1500)
+    post = np.stack([-4 + 0.2 * np.cos(ang), -4 + 0.2 * np.sin(ang),
+                     rng.uniform(0, 4, 1500)], -1)
+    wall = np.stack([rng.uniform(-8, 8, 6000), np.full(6000, 12.0),
+                     rng.uniform(0, 3, 6000)], -1)
+    pts = np.concatenate([blob, ground, post, wall]).astype(np.float32)
+    m = VoxelMap(MapConfig(voxel_size=0.5))
+    m.integrate_points(pts, np.ones(len(pts), bool), np.zeros(3))
+    return m
+
+
+def test_extract_landmarks_matches_jax():
+    """Per patch: posts, complexes (meta, offsets, points) equal; planes
+    equal in count with coefficients and corners within 1e-5 (the
+    normals come from float32 Cardano in both packages)."""
+    m = _complex_world_map()
+    n_planes = n_cplx = 0
+    for key in sorted(m._patches):
+        ref = jlm.extract_landmarks(m._patches[key], 0.5)
+        ours = lm.extract_landmarks(m._patches[key], 0.5, device="cpu")
+        for (k, a), b in zip(ours.to_arrays().items(),
+                             ref.to_arrays().values()):
+            assert a.shape == b.shape, k
+            if k == "lm_planes":
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=k)
+        n_planes += len(ref.planes)
+        n_cplx += len(ref.cplx_meta)
+    assert n_planes >= 2 and n_cplx >= 1
+
+
+def test_extract_planes_and_components_match_jax():
+    # Flat voxels on the planes x = 2, y = -3 and z = 1 (slightly tilted
+    # normals, in-plane spread) and isotropic ones, which are no plane.
+    rng = np.random.default_rng(7)
+    V = 600
+    axis = np.repeat(np.arange(3), V // 3)
+    tilt = np.eye(3)[axis] + rng.normal(0, 0.02, (V, 3))
+    tilt /= np.linalg.norm(tilt, axis=1, keepdims=True)
+    spread = np.eye(3) - tilt[:, :, None] * tilt[:, None, :]
+    cov = 0.04 * spread + 1e-5 * np.eye(3)
+    cov[::5] = 0.04 * np.eye(3)
+    mean = rng.uniform(-10, 10, (V, 3))
+    mean[np.arange(V), axis] = np.array([2.0, -3.0, 1.0])[axis]
+    coords = np.floor(mean / 0.5).astype(np.int64)
+    count = rng.integers(1, 40, V).astype(np.float32)
+    args = (coords, count, mean.astype(np.float32), cov.astype(np.float32),
+            0.5)
+    ours = lm.extract_planes(*args, device="cpu")
+    ref = jlm.extract_planes(*args)
+    assert ours.shape == ref.shape and len(ref) >= 3
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
+    cells = rng.integers(0, 12, (300, 3))
+    for reach in (1, 2):
+        np.testing.assert_array_equal(
+            lm._connected_components(cells, reach),
+            jlm._connected_components(cells, reach))
+    assert lm.extract_planes(coords[:0], count[:0], mean[:0], cov[:0],
+                             0.5).shape == (0, 16)
+
+
+def test_extract_ground_marks_matches_jax():
+    """tests/test_map.py::test_ground_mark_extraction's painted stripes:
+    the same two segments."""
+    from veloslam_tpu.io import simulate as jsim
+    truth = np.array([[2.0, -0.15, 10.0, -0.15, 0.3],
+                      [2.0, 1.85, 10.0, 1.85, 0.3]])
+    world = jsim.World(marks=truth)
+    origin = np.array([0.0, 0.0, 2.0])
+    gx, gy = np.meshgrid(np.linspace(0.5, 12, 300), np.linspace(-2, 4, 240))
+    targets = np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], -1)
+    dirs = targets - origin
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dist, kind = jsim.raycast(world, np.broadcast_to(origin, dirs.shape),
+                              dirs)
+    intensity = np.choose(kind, [0, 80, 200, 150, 255])
+    pts = (origin + dirs * dist[:, None]).astype(np.float32)
+    ours = lm.extract_ground_marks(pts, intensity, dist > 0, voxel_size=0.25)
+    ref = jlm.extract_ground_marks(pts, intensity, dist > 0, voxel_size=0.25)
+    assert len(ref) == 2
+    np.testing.assert_array_equal(ours, ref)
+    assert lm.extract_ground_marks(pts[:5], intensity[:5],
+                                   dist[:5] > 0).shape == (0, 7)
+
+
+def test_extract_planes_needs_a_card_unless_told_cpu():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.extract_planes(np.zeros((1, 3), int), np.ones(1), np.zeros((1, 3)),
+                          np.eye(3)[None], 0.5)

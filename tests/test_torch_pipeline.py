@@ -231,17 +231,20 @@ def test_slam_run_writes_outputs(tmp_path, mode, args):
 
 
 def test_slam_run_names_the_per_frame_path_as_not_ported(capsys):
-    """The per-frame mode is ported; its BEV artifact is not: the CLI's
-    help says so, and it does not offer --bev."""
+    """The per-frame mode and its BEV artifact are ported: the CLI's help
+    names the default mode and offers --bev, which takes an optional
+    file name (tests/test_torch_apps.py runs it)."""
     from veloslam_tpu_torch.apps import slam_run
     with pytest.raises(SystemExit):
         slam_run.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     assert "(default) the per-frame pipeline" in text
-    assert "`--bev` (the BEV viewer artifact) is not ported yet" in text
+    assert "`--bev` writes the interactive BEV artifact" in text
+    assert "--bev [FILE]" in text and "not ported" not in text
     with pytest.raises(SystemExit):
-        slam_run.main(["--simulate", "1", "--device", "cpu", "--bev"])
-    assert "unrecognized arguments: --bev" in capsys.readouterr().err
+        slam_run.main(["--simulate", "1", "--device", "cpu", "--bev",
+                       "a.html", "--bogus"])
+    assert "unrecognized arguments: --bogus" in capsys.readouterr().err
 
 
 def test_slam_run_default_mode_writes_outputs_and_checkpoint(tmp_path):

@@ -28,7 +28,8 @@ _loaded: dict = {}
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a kernel source."""
+    """A compiler (nvcc for the kernels, g++ for the packet pump) is
+    missing or refused a source."""
 
 
 def find_nvcc() -> str:
@@ -58,19 +59,26 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.is_file():
         return out
-    nvcc = find_nvcc()
+    return compile_shared([find_nvcc(), *NVCC_FLAGS,
+                           str(CSRC_DIR / f"{name}.cu")], out)
+
+
+def compile_shared(cmd: list, out: Path) -> Path:
+    """Run the compiler command `cmd` with `-o` a temporary file beside
+    `out`, then move it to `out` (atomic: concurrent builds agree);
+    the compiler's output is kept as `<out>.log`.  Raises
+    KernelBuildError when the compiler fails."""
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
         raise KernelBuildError(
-            f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}")
+            f"{Path(cmd[0]).name} failed on {Path(cmd[-1]).name} (exit "
+            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     Path(f"{out}.log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)          # atomic: concurrent builders agree
+    os.replace(tmp, out)
     return out
 
 

@@ -15,9 +15,11 @@ RPE against ground truth when it has one.  Three modes:
   --fast     bulk odometry only (StreamingOdometry on the device).
 
 `--checkpoint-dir` saves a resumable checkpoint (frame meta, INS track,
-map, graph) after the run.  `--bev` (the BEV viewer artifact) is not
-ported yet (ROADMAP.md slice 3a, item h).  Everything runs on `--device`
-(default cuda); `--device cpu` runs the kernels' plain versions.
+map, graph) after the run.  `--bev` writes the interactive BEV artifact
+(utils.viewer: trajectory, keyframes, closures, landmark posts, map
+occupancy, and the ground truth when there is one; one self-contained
+HTML file).  Everything runs on `--device` (default cuda); `--device
+cpu` runs the kernels' plain versions.
 
 Usage:
   python -m veloslam_tpu_torch.apps.slam_run --pcap drive.pcap \\
@@ -70,6 +72,10 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint-dir", help="save a resumable checkpoint")
     ap.add_argument("--gt", help="ground-truth trajectory txt "
                                  "(t_us x y z per row) for ATE")
+    ap.add_argument("--bev", nargs="?", const="bev.html", metavar="FILE",
+                    help="write an interactive BEV trajectory artifact "
+                         "(self-contained HTML; default bev.html in "
+                         "--out-dir)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the pipeline runs (cpu: the kernels' "
                          "plain versions)")
@@ -193,6 +199,18 @@ def main(argv=None) -> int:
 
     if args.checkpoint_dir:
         pipe.save_checkpoint(args.checkpoint_dir)
+
+    if args.bev:
+        from veloslam_tpu_torch.utils.viewer import write_bev_html
+        occ_xy, posts_xy = pipe.map.bev_layers()
+        ins_xy = (np.asarray(gt["pos"])[:, :2] if gt is not None else None)
+        bev_path = (args.bev if os.path.isabs(args.bev)
+                    else os.path.join(args.out_dir, args.bev))
+        write_bev_html(bev_path, res, ins_xy=ins_xy,
+                       landmarks_xy=posts_xy, occupancy_xy=occ_xy,
+                       closures=pipe.closures,
+                       title=f"veloslam_tpu — {os.path.basename(pcap_path)}")
+        print(f"BEV artifact: {bev_path}")
 
     print(f"frames: {res['n_frames']}  keyframes: {res['n_keyframes']}  "
           f"closures: {res['n_closures']}  "

@@ -13,9 +13,10 @@ HDL_LASERS_PER_FIRING = 32       # laser returns per firing block
 HDL_FIRING_BYTES = 100           # 2 (block id) + 2 (azimuth) + 32 * 3
 POSITION_PACKET_BYTES = 512      # GPS/position packet payload (554 - 42)
 
-# UDP ports (a pcap's canned headers name them).
+# Default UDP ports (a pcap's canned headers name the LiDAR ones).
 LIDAR_DATA_PORT = 2368
 LIDAR_POSITION_PORT = 8308
+INS_PORT = 6777
 
 # Firing-block identifiers.
 BLOCK_ID_0_TO_31 = 0xEEFF
@@ -38,6 +39,10 @@ VLP16_FIRING_BLOCK_US = 110.592  # per block (two 16-laser sub-firings)
 VLP16_LASER_US = 2.304
 VLP16_SUBFIRING_US = 55.296
 
+# --- INS wire protocol (message ids of the INS port's datagrams) -------------
+INS_MSG_INSPVA = 508
+INS_MSG_RAWINS = 325
+INS_MSG_BESTGPSPOS = 423
 INS_PERIOD_MS = 10               # INSPVA at 100 Hz
 
 ROI_RANGE_M = 100.0              # sensor detecting range for map ROI queries

@@ -1,8 +1,10 @@
 """WGS-84 geodesy on the host: llh ↔ ECEF ↔ ENU (float64 numpy).
 
 A jax-free copy of the numpy functions of veloslam_tpu/core/geodesy.py
-that the simulator's pcap writer needs (the original module imports jax).
-Angles are radians.  tests/test_torch_host.py holds the copies equal.
+that the simulator's pcap writer, the INS converter and the INS replay
+need (the original module imports jax).  Angles are radians.
+tests/test_torch_host.py and tests/test_torch_live.py hold the copies
+equal.
 """
 
 from __future__ import annotations
@@ -62,6 +64,16 @@ def _enu_rotation(orgllh):
     row_n = np.stack([-sl * co, -sl * so, cl], -1)
     row_u = np.stack([cl * co, cl * so, sl], -1)
     return np.stack([row_e, row_n, row_u], -2)
+
+
+def xyz2enu_np(xyz, orgxyz):
+    R = _enu_rotation(xyz2llh_np(orgxyz))
+    d = xyz - orgxyz
+    return np.einsum("...ij,...j->...i", R, d)
+
+
+def llh2enu_np(llh, orgxyz):
+    return xyz2enu_np(llh2xyz_np(llh), orgxyz)
 
 
 def enu2xyz_np(enu, orgxyz):

@@ -1,23 +1,27 @@
 """Host packet encoders and decoders (numpy): HDL data packets, the INS
-text log, and position packets with their NMEA $GPRMC sentence.
+text log, the INS port's wire structs, and position packets with their
+NMEA $GPRMC sentence.
 
-A jax-free copy of what the simulator, the pcap reader and the pipeline
-use from veloslam_tpu/io/packets.py (importing the original imports jax
-through the io package's __init__).  tests/test_torch_host.py holds the
-copies equal to the originals.
+A jax-free copy of veloslam_tpu/io/packets.py (importing the original
+imports jax through the io package's __init__).  tests/test_torch_host.py
+and tests/test_torch_live.py hold the copies equal to the originals.
 
 INS text log: whitespace rows "x y yaw roll pitch v tv_sec tv_usec", angles
 in radians, the yaw sign flipped on load (the reference's loadFromTxtFile
-contract).  Position packets (512 B, port 8308): a little-endian
-µs-into-hour counter at byte 198, the PPS status at 202 (0 absent,
-1 attempting, 2 locked, 3 error) and a CR/LF-terminated NMEA sentence from
-206; they ground the HDL hour clock to GPS UTC.
+contract).  INS port (6777) datagrams are raw little-endian C structs
+whose first uint16 is the message id: InsPVA (508, 104 B: the natural
+x86-64 layout, 4 pad bytes after the two uint32s and 4 at the tail),
+RawINS (325, 24 B) and BestGPSPos (423, 20 B).  Position packets (512 B,
+port 8308): a little-endian µs-into-hour counter at byte 198, the PPS
+status at 202 (0 absent, 1 attempting, 2 locked, 3 error) and a
+CR/LF-terminated NMEA sentence from 206; they ground the HDL hour clock
+to GPS UTC.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -130,6 +134,71 @@ def read_ins_txt(path: str) -> Dict[str, np.ndarray]:
         "pitch_deg": np.rad2deg(raw[:, 4]),
         "speed": raw[:, 5],
     }
+
+
+# --- INS port wire structs --------------------------------------------------
+
+_INSPVA = struct.Struct("<HHII4xd3d3d3di4x")
+INSPVA_BYTES = _INSPVA.size          # 104
+_RAWINS = struct.Struct("<HHIi3i")
+RAWINS_BYTES = _RAWINS.size          # 24
+_BESTGPSPOS = struct.Struct("<HHIiif")
+BESTGPSPOS_BYTES = _BESTGPSPOS.size  # 20
+
+
+def pack_inspva(week_number: int, milliseconds: int, week_number_pos: int,
+                seconds_pos: float, llh_deg: Tuple[float, float, float],
+                vel: Tuple[float, float, float],
+                eulr_deg: Tuple[float, float, float],
+                ins_status: int = 0) -> bytes:
+    return _INSPVA.pack(C.INS_MSG_INSPVA, week_number, milliseconds,
+                        week_number_pos, seconds_pos, *llh_deg, *vel,
+                        *eulr_deg, ins_status)
+
+
+def unpack_inspva(data: bytes) -> Dict[str, object]:
+    vals = _INSPVA.unpack(data[:INSPVA_BYTES])
+    return {
+        "message_id": vals[0], "week_number": vals[1],
+        "milliseconds": vals[2], "week_number_pos": vals[3],
+        "seconds_pos": vals[4], "llh_deg": vals[5:8], "vel": vals[8:11],
+        "eulr_deg": vals[11:14], "ins_status": vals[14],
+    }
+
+
+def pack_rawins(week_number: int, milliseconds: int, imu_status: int,
+                accel_raw: Tuple[int, int, int]) -> bytes:
+    return _RAWINS.pack(C.INS_MSG_RAWINS, week_number, milliseconds,
+                        imu_status, *accel_raw)
+
+
+def unpack_rawins(data: bytes) -> Dict[str, object]:
+    vals = _RAWINS.unpack(data[:RAWINS_BYTES])
+    return {
+        "message_id": vals[0], "week_number": vals[1],
+        "milliseconds": vals[2], "imu_status": vals[3],
+        "accel_raw": vals[4:7],
+    }
+
+
+def pack_bestgpspos(week_number: int, milliseconds: int, solution: int,
+                    gps_status: int, diff_age: float) -> bytes:
+    return _BESTGPSPOS.pack(C.INS_MSG_BESTGPSPOS, week_number, milliseconds,
+                            solution, gps_status, diff_age)
+
+
+def unpack_bestgpspos(data: bytes) -> Dict[str, object]:
+    vals = _BESTGPSPOS.unpack(data[:BESTGPSPOS_BYTES])
+    return {
+        "message_id": vals[0], "week_number": vals[1],
+        "milliseconds": vals[2], "solution": vals[3],
+        "gps_status": vals[4], "diff_age": vals[5],
+    }
+
+
+def peek_message_id(data: bytes) -> int:
+    """Message id of any INS-port datagram (first little-endian uint16)."""
+    return int(struct.unpack_from("<H", data)[0]) if len(data) >= 2 else -1
 
 
 # --- LiDAR position packets (UDP port 8308, 512-byte payload) ----------------

@@ -1,8 +1,8 @@
 """Patch-tiled persistent voxel-Gaussian map.
 
 Port of veloslam_tpu/map/voxelmap.py (tiling, residency, integration,
-the ROI assembly of the per-frame pipeline, persistence; the BEV layers
-of the viewer are not ported yet, ROADMAP.md slice 3a item h):
+the ROI assembly of the per-frame pipeline, persistence, the BEV viewer's
+layers):
 
   * the world is tiled into square patches (default 100 m); each patch
     stores sufficient statistics per occupied voxel (count, Σp, Σppᵀ
@@ -292,6 +292,28 @@ class VoxelMap:
         statistics and prune voxels whose count falls to ~zero (the exact
         inverse of integrate_points for the same points)."""
         self.integrate_points(pts_world, mask, center, sign=-1.0)
+
+    def bev_layers(self, *, max_cells: int = 20000, min_count: float = 4.0
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """(occupancy_xy, post_xy) across all patches, resident and
+        spilled, for the BEV artifact (utils.viewer): the centres of cells
+        with at least `min_count` points, strided down to at most
+        `max_cells`, and the landmark posts' xy."""
+        occ, posts = [], []
+        for idx in sorted(set(self._patches) | set(self._spilled)):
+            patch = self._materialize(idx, create=False)
+            if patch is None:
+                continue
+            sel = patch.count >= min_count
+            occ.append((patch.coords[sel, :2] + 0.5) * self.cfg.voxel_size)
+            if len(patch.landmarks.posts):
+                posts.append(patch.landmarks.posts[:, :2])
+        occ_xy = (np.concatenate(occ) if occ else np.zeros((0, 2)))
+        if len(occ_xy) > max_cells:
+            step = int(np.ceil(len(occ_xy) / max_cells))
+            occ_xy = occ_xy[::step]
+        posts_xy = (np.concatenate(posts) if posts else np.zeros((0, 2)))
+        return occ_xy, posts_xy
 
     # --- ROI assembly (the registration working set) -----------------------
 

@@ -1,8 +1,8 @@
 """The user-facing SLAM pipeline: pcap + INS log → trajectory, keyframe
 pose graph with loop closures and landmarks, tiled map.
 
-Port of veloslam_tpu/runtime/pipeline.py::SlamPipeline, two offline
-paths:
+Port of veloslam_tpu/runtime/pipeline.py::SlamPipeline: two offline
+paths and live mode:
 
     run_offline(pcap, ins)           the per-frame loop (slam_run's
                                      default mode): each packet batch is
@@ -25,6 +25,13 @@ paths:
                                      trajectory correction) queued before
                                      one readback, mirrored into the host
                                      graph;
+    run_online(ports)                live UDP ingest (LiDAR, INS and
+                                     position packets) until a duration
+                                     passes or the stream goes idle, in
+                                     fixed packets_per_batch batches:
+                                     process_packets per batch, or with
+                                     fast=True the FullSlam stream and
+                                     its device finalize;
     finalize()                       a last host closure sweep (per-frame
                                      runs only), post landmarks from every
                                      keyframe scan, the landmark-Schur
@@ -43,10 +50,9 @@ are the JAX package's; the card's work is queued asynchronously, so a
 stage's time is its enqueue time unless the timers synchronize.
 
 Registration follows `RegistrationConfig.method`: point-to-plane GICP,
-D2D or NDT on the per-frame path, GICP on the batched one.  Not ported
-yet (ROADMAP.md): `run_online` and the position-packet handler of live
-mode.  The JAX package's `warmup*` and host-solve placement are TPU
-workarounds the port does not need.
+D2D or NDT on the per-frame path, GICP on the batched one.  The JAX
+package's `warmup*` and host-solve placement are TPU workarounds the port
+does not need.
 """
 
 from __future__ import annotations
@@ -75,6 +81,8 @@ from veloslam_tpu_torch.graph import loopclosure, pcg
 from veloslam_tpu_torch.graph import scancontext as sc_mod
 from veloslam_tpu_torch.graph.posegraph import GraphArrays, PoseGraph
 from veloslam_tpu_torch.io import packets as pk
+from veloslam_tpu_torch.io import udp
+from veloslam_tpu_torch.io.ins import InsConverter
 from veloslam_tpu_torch.io.pcap import (PcapReader, read_lidar_packets,
                                         read_position_packets)
 from veloslam_tpu_torch.map.voxelmap import VoxelMap
@@ -82,7 +90,8 @@ from veloslam_tpu_torch.registration import d2d, gicp, ndt
 from veloslam_tpu_torch.registration import voxel as vx
 from veloslam_tpu_torch.runtime.framestore import FrameStore
 from veloslam_tpu_torch.runtime.fullslam import FullSlam
-from veloslam_tpu_torch.runtime.odometry import packets_per_second
+from veloslam_tpu_torch.runtime.odometry import (packets_per_second,
+                                                 slots_for_batch)
 from veloslam_tpu_torch.utils.profiling import StageTimers
 
 
@@ -207,9 +216,10 @@ class SlamPipeline:
         self._landmarks_added = False
         self._ring_full = False
         self._dense_cov: Optional[float] = None
-        # INS-port message counters, as the JAX package keeps them; only
-        # live mode's datagram handler (not ported yet) updates them, so
-        # an offline run returns them as initialised, as there.
+        # INS-port auxiliary messages (live mode's handle_ins_datagram):
+        # RawINS samples (t_us, imu_status, accel_raw) and the counters;
+        # an offline run returns them as initialised.
+        self.imu_log: List[Tuple[int, int, Tuple[int, int, int]]] = []
         self.ins_health = {
             "inspva_count": 0, "rawins_count": 0, "bestgps_count": 0,
             "unknown_count": 0, "last_imu_status": None,
@@ -495,25 +505,28 @@ class SlamPipeline:
         times = self._ground_offline_times(pcap_path, pkts, times)
         if len(pkts) == 0:
             return self.results()
+        with self.timers.stage("slam_batched"):
+            eng = self._full_slam()
+            eng.run_device(pkts, times, self.track, batch=batch)
+        return self._finalize_batched_engine(eng, defer_map=defer_map)
+
+    def _full_slam(self) -> FullSlam:
+        """The device full-SLAM engine of this pipeline's config."""
         sc = self.cfg.sensor
         rc = self.cfg.registration
         gc = self.cfg.graph
-        with self.timers.stage("slam_batched"):
-            eng = FullSlam(self.dcalib, model=sc.model,
-                           n_beams=sc.n_lasers, voxel_size=rc.voxel_size,
-                           map_capacity=rc.rolling_map_capacity,
-                           reg_points=rc.max_points,
-                           reg_iterations=rc.max_iterations,
-                           kf_capacity=gc.max_keyframes,
-                           kf_dist_m=gc.keyframe_translation_m,
-                           kf_rot_deg=gc.keyframe_rotation_deg,
-                           use_pallas=rc.use_pallas,
-                           use_dense=rc.use_dense_index,
-                           reassociate_every=rc.reassociate_every,
-                           map_decay=rc.map_decay,
-                           frame_rate_hz=sc.rpm / 60.0)
-            eng.run_device(pkts, times, self.track, batch=batch)
-        return self._finalize_batched_engine(eng, defer_map=defer_map)
+        return FullSlam(self.dcalib, model=sc.model, n_beams=sc.n_lasers,
+                        voxel_size=rc.voxel_size,
+                        map_capacity=rc.rolling_map_capacity,
+                        reg_points=rc.max_points,
+                        reg_iterations=rc.max_iterations,
+                        kf_capacity=gc.max_keyframes,
+                        kf_dist_m=gc.keyframe_translation_m,
+                        kf_rot_deg=gc.keyframe_rotation_deg,
+                        use_pallas=rc.use_pallas,
+                        use_dense=rc.use_dense_index,
+                        reassociate_every=rc.reassociate_every,
+                        map_decay=rc.map_decay, frame_rate_hz=sc.rpm / 60.0)
 
     def _finalize_batched_engine(self, eng: FullSlam,
                                  defer_map: bool = False) -> Dict:
@@ -608,6 +621,217 @@ class SlamPipeline:
             with self.timers.stage("map_build"):
                 self.rebuild_map()
         return self.results()
+
+    # --- live mode -----------------------------------------------------------
+
+    def handle_position_packet(self, raw: bytes,
+                               clock: timesync.HdlClock) -> None:
+        """One 512-byte position packet: PPS health and GPS grounding of
+        the HDL hour clock (unpack_position_packet →
+        HdlClock.maybe_ground)."""
+        info = pk.unpack_position_packet(raw)
+        h = self.gps_health
+        h["position_count"] += 1
+        h["pps_status"] = info["pps_status_str"]
+        rmc = info["rmc"]
+        if rmc is None or not rmc["valid"]:
+            return
+        h["last_fix_lat_deg"] = rmc["lat_deg"]
+        h["last_fix_lon_deg"] = rmc["lon_deg"]
+        if clock.maybe_ground(info["us_into_hour"], rmc["utc_us"]):
+            h["grounded"] = True
+
+    def handle_ins_datagram(self, raw: bytes,
+                            conv: InsConverter) -> Optional[int]:
+        """Dispatch one INS-port datagram on its message id: InsPVA →
+        pose track (returns its timestamp µs); RawINS → IMU sample log and
+        status; BestGPSPos → GPS solution health; anything else counts as
+        unknown."""
+        mid = pk.peek_message_id(raw)
+        h = self.ins_health
+        if mid == C.INS_MSG_INSPVA and len(raw) >= pk.INSPVA_BYTES:
+            t_us, q, t3, v = conv.convert(pk.unpack_inspva(raw))
+            self.feed_ins_pose(t_us, q, t3, v)
+            h["inspva_count"] += 1
+            return t_us
+        if mid == C.INS_MSG_RAWINS and len(raw) >= pk.RAWINS_BYTES:
+            msg = pk.unpack_rawins(raw)
+            t_us = timesync.ins_timestamp_us(
+                msg["week_number"], msg["milliseconds"],
+                msg["week_number"], msg["milliseconds"] / 1e3)
+            self.imu_log.append((t_us, msg["imu_status"],
+                                 tuple(msg["accel_raw"])))
+            h["rawins_count"] += 1
+            h["last_imu_status"] = msg["imu_status"]
+            return None
+        if mid == C.INS_MSG_BESTGPSPOS and len(raw) >= pk.BESTGPSPOS_BYTES:
+            msg = pk.unpack_bestgpspos(raw)
+            h["bestgps_count"] += 1
+            h["last_gps_solution"] = msg["solution"]
+            h["last_gps_status"] = msg["gps_status"]
+            h["last_diff_age"] = msg["diff_age"]
+            return None
+        h["unknown_count"] += 1
+        return None
+
+    def _live_engine(self, duration_s: Optional[float]) -> FullSlam:
+        """The fast live mode's FullSlam, sized for the live batch (and,
+        when the session's duration is known, presized so nothing regrows
+        mid-stream)."""
+        sc = self.cfg.sensor
+        eng = self._full_slam()
+        need = slots_for_batch(sc.model, self.cfg.pipeline.packets_per_batch,
+                               frame_rate_hz=sc.rpm / 60.0)
+        if need > eng.MAX_FRAMES_BATCH:
+            eng.MAX_FRAMES_BATCH = need
+        if duration_s is not None:
+            fr = sc.rpm / 60.0 * 1.2
+            eng.ensure_kf_capacity(int(duration_s * fr) + 8)
+            eng.ensure_capacity(-(-(int(duration_s * fr)
+                                    + 2 * eng.MAX_FRAMES_BATCH + 16)
+                                  // 1024) * 1024)
+        return eng
+
+    def run_online(self, lidar_port: int = None, ins_port: int = None,
+                   position_port: int = None,
+                   origin_llh_deg=None, duration_s: Optional[float] = None,
+                   idle_timeout_s: float = 2.0,
+                   on_ready=None, fast: bool = False) -> Dict:
+        """Live acquisition: UDP LiDAR, INS and position-packet ingest
+        until `duration_s` elapses or the stream is idle for
+        `idle_timeout_s` (counted from the end of the last processing).
+
+        HDL µs-into-hour stamps resolve against GPS UTC once a position
+        packet carries a valid $GPRMC fix, else against the first INS
+        datagram's time, else (after 1 s without either) the wall clock;
+        the base latches on first resolution, so LiDAR packets that
+        arrive before it are held and replayed first.  Packets are
+        consumed in fixed `packets_per_batch` batches, the trailing one
+        padded with idle packets: per frame through `process_packets`, or
+        with `fast=True` through the FullSlam stream
+        (`StreamingOdometry.feed`, no readback while streaming) and, at
+        the end, the same device finalize as run_offline_batched.
+        `live_stats` on the result counts packets, batches, receiver drops
+        and the per-batch feed time (enqueue time on the card)."""
+        import time as _time
+
+        lidar_port = lidar_port or C.LIDAR_DATA_PORT
+        ins_port = ins_port or C.INS_PORT
+        position_port = position_port or C.LIDAR_POSITION_PORT
+        conv = InsConverter(origin_llh_deg)
+        clock = timesync.HdlClock()
+        B = self.cfg.pipeline.packets_per_batch
+        buf: List[np.ndarray] = []          # resolved, not yet consumed
+        buf_times: List[np.ndarray] = []
+        pre_buf: List[np.ndarray] = []      # held until a time base exists
+        pre_times: List[np.ndarray] = []
+        first_ins_us: Optional[int] = None
+        t_start = _time.monotonic()
+        last_rx = t_start
+        stats = {"lidar_packets": 0, "ins_datagrams": 0,
+                 "position_packets": 0, "batches": 0,
+                 "batch_feed_ms_max": 0.0, "batch_feed_ms_sum": 0.0}
+        eng = self._live_engine(duration_s) if fast else None
+
+        def consume(pkts_b: np.ndarray, times_b: np.ndarray) -> None:
+            t0b = _time.perf_counter()
+            if eng is not None:
+                t0, t1 = int(times_b[0]), int(times_b[-1])
+                eng.feed(pkts_b, times_b,
+                         self.track.window(t0, t1, anchor_us=t0))
+            else:
+                self.process_packets(pkts_b, times_b)
+            ms = (_time.perf_counter() - t0b) * 1e3
+            stats["batches"] += 1
+            stats["batch_feed_ms_sum"] += ms
+            stats["batch_feed_ms_max"] = max(stats["batch_feed_ms_max"], ms)
+
+        def resolve(pkts: np.ndarray, rx_times: np.ndarray) -> None:
+            """Resolve a chunk's stamps (GPS base, else the first INS
+            time, else its first receive time) into the batch buffer and
+            consume every full batch."""
+            nonlocal buf, buf_times
+            ref = (None if clock.grounded
+                   else (first_ins_us if first_ins_us is not None
+                         else int(rx_times[0])))
+            buf.append(pkts)
+            buf_times.append(clock.resolve_batch(
+                pk.decode_lidar_packets_np(pkts)["gps_us"], ref_time_us=ref))
+            while sum(len(b) for b in buf) >= B:
+                allp, allt = np.concatenate(buf), np.concatenate(buf_times)
+                consume(allp[:B], allt[:B])
+                buf, buf_times = [allp[B:]], [allt[B:]]
+
+        with udp.UdpReceiver(lidar_port, C.HDL_PACKET_BYTES) as hdl_rx, \
+                udp.UdpReceiver(ins_port, pk.INSPVA_BYTES,
+                                variable=True) as ins_rx, \
+                udp.UdpReceiver(position_port,
+                                C.POSITION_PACKET_BYTES) as pos_rx:
+            if on_ready is not None:
+                on_ready()          # ports are bound; senders may start
+            while True:
+                if (duration_s is not None
+                        and _time.monotonic() - t_start > duration_s):
+                    break
+                ins_pkts, ins_lens, _ = ins_rx.poll_var()
+                for raw, ln in zip(ins_pkts, ins_lens):
+                    t_us = self.handle_ins_datagram(raw[:ln].tobytes(), conv)
+                    if t_us is not None and first_ins_us is None:
+                        first_ins_us = t_us
+                stats["ins_datagrams"] += len(ins_pkts)
+                pos_pkts, _ = pos_rx.poll()
+                for raw in pos_pkts:
+                    self.handle_position_packet(raw.tobytes(), clock)
+                stats["position_packets"] += len(pos_pkts)
+                pkts, rx_times = hdl_rx.poll()
+                stats["lidar_packets"] += len(pkts)
+                if len(pkts):
+                    # Resolving latches the hour base, so wait for a
+                    # proper one: a wall-clock base latched just before
+                    # the first INS datagram would put the LiDAR times
+                    # and the pose track in different epochs.
+                    if not (clock.grounded or first_ins_us is not None
+                            or _time.monotonic() - t_start > 1.0):
+                        pre_buf.append(pkts)
+                        pre_times.append(rx_times)
+                    else:
+                        if pre_buf:          # the backlog first
+                            pkts = np.concatenate(pre_buf + [pkts])
+                            rx_times = np.concatenate(pre_times + [rx_times])
+                            pre_buf, pre_times = [], []
+                        resolve(pkts, rx_times)
+                if len(pkts) or len(ins_pkts) or len(pos_pkts):
+                    # Stamped after processing: a batch's compute time
+                    # does not count toward the idle window.
+                    last_rx = _time.monotonic()
+                else:
+                    if _time.monotonic() - last_rx > idle_timeout_s:
+                        break
+                    _time.sleep(0.005)
+            if pre_buf:
+                # The stream ended before a base arrived: the wall clock.
+                resolve(np.concatenate(pre_buf), np.concatenate(pre_times))
+            buffered = sum(len(b) for b in buf)
+            if buffered > 0:
+                # The trailing partial batch, padded with idle packets (no
+                # returns, frozen azimuth) to the batch size.
+                allp = np.concatenate(buf)
+                allt = np.concatenate(buf_times)
+                pad = B - buffered
+                allp = np.concatenate(
+                    [allp, pk.idle_lidar_packets(allp[-1], pad)])
+                allt = np.concatenate(
+                    [allt, np.full(pad, allt[-1], np.int64)])
+                consume(allp, allt)
+            stats["lidar_dropped"] = hdl_rx.dropped
+            stats["ins_dropped"] = ins_rx.dropped
+        if eng is not None and stats["batches"] > 0:
+            self._finalize_batched_engine(eng)
+        stats["batch_feed_ms_mean"] = round(
+            stats.pop("batch_feed_ms_sum") / max(stats["batches"], 1), 3)
+        res = self.results()
+        res["live_stats"] = stats
+        return res
 
     # --- graph solves and the map ------------------------------------------
 
