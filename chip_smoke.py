@@ -4,9 +4,10 @@ user-facing pipeline from pcap to trajectory, landmarks and tiled map
 (batched, and per frame: slam_run's default mode, with each of its
 registration methods), the streaming odometry's fused and chained
 paths and slam_run --fast's engine, live mode over UDP (per frame and
-fast), the tools (slam_run --bev, inspect, the landmark extractors), and
+fast), the tools (slam_run --bev, inspect, the landmark extractors),
 the matrix-free PCG graph solvers that sessions above 2048 keyframes
-run.
+run, and the multi-device slice (sharded registration, decode and graph
+solves, the distributed session) on ranks sharing the card.
 
 Run on a machine with an NVIDIA H100, from the repository root or any
 other directory (the script puts its own directory first on sys.path):
@@ -147,12 +148,32 @@ code is non-zero:
                 (tests/fixtures/long_drive_golden_seed3.npz); the chain
                 kernel must launch in the device finalize and in the
                 landmark solve.
+  14. multichip — the multi-device slice (veloslam_tpu_torch/parallel/,
+                the port of __graft_entry__.py::dryrun_multichip), every
+                rank a process spawned with the "spawn" start method:
+                world 1 over NCCL held to the single-process functions on
+                the card (decode_packets_sharded on 16384 packets,
+                register_sharded of a 16384-point scan against the
+                65536-row map with a DenseIndex per shard,
+                register_halo_sharded, solve_graph_sharded with and
+                without landmarks on a 1024-keyframe graph), worlds 2 and
+                4 over Gloo with every rank on the card (the replicas
+                equal to the bit, each within its tolerance of world 1,
+                ms per call, collectives per registration), the
+                DistributedSlamSession on 2 Gloo ranks on bench.py's
+                drive per frame + finalize() against the JAX session's
+                golden (tests/fixtures/multihost_golden_seed3.npz), and
+                apps/scaling_bench at 1 (NCCL) and 2 (Gloo) ranks; the
+                registration kernels held against their plain versions on
+                the sharded path's and the session's own inputs.
 Then one JSON line with the kernel records (launches: one pipeline run,
 the chain kernel's one long-drive run; per_frame_launches: one per_frame
 run; per_frame_max_abs_err: the largest |Δ| from the plain version on the
 per_frame path's own inputs; paths_launches and paths_max_abs_err: the
 same for each part of phase paths; live_launches and live_max_abs_err:
-the same for each run of phase live), and last the result line.
+the same for each run of phase live; multichip_launches and
+multichip_max_abs_err: rank 0's in each world and in the session of phase
+multichip), and last the result line.
 Imports nothing of JAX or of the JAX package, and checks that before the
 result line.
 """
@@ -289,6 +310,52 @@ LONG_DRIVE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
 # over 0.54-1.09 m, so the bound, golden + 0.15 m = 0.926 m, leaves
 # 0.205 m (28%) above the reading for a change that reorders sums.
 LONG_DRIVE_ATE_M = 0.15
+MULTICHIP_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                                "multihost_golden_seed3.npz")
+# Phase multichip: the Gloo worlds beside world 1 (every rank on the one
+# card), and the sizes: "full" at the production width (a 16384-point
+# scan, the 65536-row rolling map at 0.5 m, bench.py's 16384-packet
+# batch, a 1024-keyframe graph with closures and post observations);
+# "small" for a CPU rehearsal.
+MULTICHIP_WORLDS = (2, 4)
+MULTICHIP_SIZES = {
+    "full": dict(points=16384, rows=65536, voxel=0.5, packets=16384,
+                 graph=dict(n=1000, K=1024, E=2048, lap=250, radius=40.0,
+                            seed=7, sigma=0.01, info=100.0,
+                            closure_every=50, closure_info=1000.0,
+                            n_landmarks=16, M=64, O=2048, obs_every=8,
+                            obs_range=25.0, obs_sigma=0.02, obs_info=25.0)),
+    "small": dict(points=4096, rows=16384, voxel=0.5, packets=512,
+                  graph=dict(n=100, K=128, E=256, lap=50, radius=20.0,
+                             seed=7, sigma=0.01, info=100.0,
+                             closure_every=25, closure_info=1000.0,
+                             n_landmarks=8, M=64, O=512, obs_every=4,
+                             obs_range=25.0, obs_sigma=0.02, obs_info=25.0)),
+}
+MULTICHIP_BENCH = {"full": {}, "small": dict(points=4096, capacity=4096,
+                                             iters=4)}
+# The production registration schedule and the graph's GN iterations
+# (RegistrationConfig, GraphConfig defaults).
+MULTICHIP_ITERATIONS, MULTICHIP_REASSOCIATE, MULTICHIP_GN = 16, 8, 8
+# Tolerances.  World 1 against the port's single-process functions on the
+# same device: register_sharded is gicp.register's arithmetic on the
+# same correspondences (held to 1e-6); the halo step adds the damping
+# as one term, the JAX halo's form (float32 rounding of the 6x6 solve);
+# the graph solves sum the same pieces in the same order (the all_reduce
+# of one rank is a copy), but a multithreaded CPU BLAS need not repeat
+# its products (1.1e-5 m between two CPU rehearsals).  Worlds 2 and 4 against world 1: the
+# registrations' correspondences come from each shard's own index, the
+# NE sums of the halo path run per rank; the graph's partial normal
+# equations are summed in another order, which the float32 Cholesky of
+# the 6144-row system amplifies (1.03 cm at most at world 2 of the
+# 1024-keyframe pose-only graph on an H100): phase pcg's gates between
+# two float32 solves of one graph, 1 cm RMS and 5 cm at most.
+MULTICHIP_REG_ONE = 1e-6
+MULTICHIP_HALO_ONE = 1e-4
+MULTICHIP_GRAPH_ONE = 1e-4
+MULTICHIP_REG_WORLD = 1e-4
+MULTICHIP_GRAPH_WORLD = {"rms_m": 0.01, "max_m": 0.05, "q": 1e-3}
+MULTICHIP_TIMEOUT_S = 300
 LIVE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                            "live_golden_seed3.npz")
 # run_online's ports in a scripted session (no socket is bound there).
@@ -1608,10 +1675,12 @@ def capturing_kernel_inputs(seen: dict, latest: bool = False):
     """While in the block, record the inputs (cloned) and keyword
     arguments of the first call (with `latest`, the last) of each
     registration kernel's wrapper at each distinct shape and keyword set,
-    as registration/gicp.py and registration/voxel.py call them:
+    as registration/gicp.py, registration/voxel.py and
+    parallel/sharded.py call them:
     `seen[(name, shapes, kw)] = (args, kw)`.  A stream's first frames
     meet an empty map; its last ones, a built one."""
     from veloslam_tpu_torch.core import se3
+    from veloslam_tpu_torch.parallel import sharded
     from veloslam_tpu_torch.registration import gicp
     from veloslam_tpu_torch.registration import voxel as vx
 
@@ -1626,7 +1695,8 @@ def capturing_kernel_inputs(seen: dict, latest: bool = False):
         return call
 
     hooks = ((gicp, "gn_iteration"), (gicp, "fused_normal_equations"),
-             (gicp, "gather_rows8"), (vx, "gather_i32"))
+             (gicp, "gather_rows8"), (vx, "gather_i32"),
+             (sharded, "gn_iteration"))
     saved = [getattr(mod, attr) for mod, attr in hooks]
     for (mod, attr), fn in zip(hooks, saved):
         setattr(mod, attr, recorder(attr, fn))
@@ -3053,6 +3123,644 @@ def phase_long_drive(device, smi: str) -> dict:
     return launches
 
 
+# --- phase multichip: the multi-device slice over torch.distributed --------
+
+def static_scan(world, pos, yaw: float, n_az: int = 900,
+                n_vert: int = 32) -> np.ndarray:
+    """A full revolution raycast from a static pose (the JAX tests'
+    tests/test_registration.py::_static_scan with the port's simulator):
+    sensor-frame points (P, 3) float32."""
+    from veloslam_tpu_torch.io import simulate as sim
+    az = np.linspace(0, 2 * np.pi, n_az, endpoint=False)
+    vert = np.deg2rad(np.linspace(-30.67, 10.67, n_vert))
+    azg, vg = np.meshgrid(az, vert, indexing="ij")
+    dirs_s = np.stack([np.cos(vg) * np.sin(azg), np.cos(vg) * np.cos(azg),
+                       np.sin(vg)], -1).reshape(-1, 3)
+    c, s = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    dirs_w = dirs_s @ R.T
+    dist, _ = sim.raycast(world, np.broadcast_to(pos, dirs_w.shape).copy(),
+                          dirs_w, max_range=120.0)
+    return (dirs_s * dist[:, None])[dist > 0].astype(np.float32)
+
+
+def multichip_inputs(size: dict) -> dict:
+    """The multichip phase's inputs, numpy, from seeds: a registration
+    target of `rows` voxel rows (four static scans of World.demo(5) in
+    the first scan's frame), a scan of `points` points taken 0.34 m and
+    1.5° away (`t_gt`), bench.py's bulk packets, and a pcg_graph of
+    MULTICHIP_SIZES' kind (closures and landmark observations)."""
+    from veloslam_tpu_torch.io import simulate as sim
+    from veloslam_tpu_torch.registration import gicp
+    world = sim.World.demo(seed=5, n_posts=30, n_walls=10)
+    base = np.array([0.0, 0.0, 2.0])
+    parts = []
+    for dx, dy, yaw in ((0.0, 0.0, 0.0), (6.0, 0.0, 0.4), (0.0, 6.0, 1.2),
+                        (-6.0, -4.0, 2.4)):
+        p = static_scan(world, base + [dx, dy, 0.0], yaw)
+        c, s = np.cos(yaw), np.sin(yaw)
+        parts.append(p @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]).T
+                     + [dx, dy, 0.0])
+    tgt = np.concatenate(parts).astype(np.float32)
+    t_gt = np.array([0.15, 0.3, 0.02], np.float32)
+    src = static_scan(world, base + t_gt, np.deg2rad(1.5))
+    P = size["points"]
+    src = src[::max(1, len(src) // P)][:P]
+    pts = np.zeros((P, 3), np.float32)
+    pts[:len(src)] = src
+    mask = np.arange(P) < len(src)
+    one = gicp.build_plane_grid(
+        torch.as_tensor(tgt)[None], torch.ones(1, len(tgt), dtype=torch.bool),
+        torch.zeros(3), size["voxel"], capacity=size["rows"])
+    target = {"keys": one.grid.keys[0].numpy(),
+              "count": one.grid.count[0].numpy(),
+              "mean": one.grid.mean[0].numpy(),
+              "cov": one.grid.cov[0].numpy(),
+              "origin": one.grid.origin[0].numpy(),
+              "voxel_size": one.grid.voxel_size[0].numpy(),
+              "normal": one.normal[0].numpy(), "usable": one.usable[0].numpy()}
+    graph, _ = pcg_graph(size["graph"])
+    return {"target": target, "pts": pts, "mask": mask, "t_gt": t_gt,
+            "packets": _bulk_inputs(torch.device("cpu"),
+                                    size["packets"])[0].numpy(),
+            "graph": graph, "K": size["graph"]["K"], "M": size["graph"]["M"],
+            "n_poses": size["graph"]["n"]}
+
+
+def _jax_modules() -> list:
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "veloslam_tpu"))
+
+
+def _np_out(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def multichip_rank(device, inp: dict) -> dict:
+    """One rank of phase multichip's sharded calls (all ranks on "map";
+    decode on "data"): register_sharded (a DenseIndex per shard, the
+    production 16 iterations re-associated every 8), register_halo_sharded
+    (the scan routed by key range, the same schedule),
+    decode_packets_sharded and solve_graph_sharded with and without
+    landmarks.  A warm pass records the registration kernels' inputs, and
+    rank 0 holds each kernel against its plain version on them
+    (check_captured); then the kernel counts are zeroed, the calls run
+    once more, and the counts are read.  World 1 (rank 0) also runs the
+    port's single-process functions on the same card.  Returns numpy."""
+    from veloslam_tpu_torch.config import MeshConfig
+    from veloslam_tpu_torch.core import se3
+    from veloslam_tpu_torch.decode import calibration as calib_mod
+    from veloslam_tpu_torch.decode.decode import DeviceCalib, decode_packets
+    from veloslam_tpu_torch.graph import optimize
+    from veloslam_tpu_torch.graph.posegraph import GraphArrays
+    from veloslam_tpu_torch.parallel import dist, halo, sharded
+    from veloslam_tpu_torch.parallel.mesh import block, make_mesh
+    from veloslam_tpu_torch.registration import gicp
+    from veloslam_tpu_torch.registration import voxel as vx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (
+        lambda: None)
+    n, rank = dist.process_count(), dist.process_index()
+    mesh = dist.global_mesh(device, data_axis=1)
+    dmesh = make_mesh(MeshConfig(data_axis=n, map_axis=1), device)
+    tl = {k: torch.as_tensor(np.array(v), device=device)
+          for k, v in inp["target"].items()}
+    full = gicp.make_plane_grid(vx.VoxelGrid(
+        keys=tl["keys"], count=tl["count"], mean=tl["mean"], cov=tl["cov"],
+        origin=tl["origin"], voxel_size=tl["voxel_size"]), tl["normal"],
+        tl["usable"])
+    rows, origin, vs = dist.partition_plane_grid_rows(full, rank, n)
+    shard = dist.assemble_global_plane_grid(mesh, rows, origin, vs)
+    dense = sharded.build_dense_sharded(mesh, shard)
+    pts = torch.as_tensor(inp["pts"], device=device)
+    mask = torch.as_tensor(inp["mask"], device=device)
+    prior = se3.Pose.identity(device=device)
+    keys = inp["target"]["keys"]
+    h = 2 * halo.required_halo(keys, n) + 16 if n > 1 else 16
+    p_r, m_r = halo.partition_points_by_key_ranges(
+        keys, inp["pts"], inp["mask"], inp["target"]["origin"],
+        float(inp["target"]["voxel_size"]), n)
+    hp = block(torch.as_tensor(p_r, device=device), mesh, "map").clone()
+    hm = block(torch.as_tensor(m_r, device=device), mesh, "map").clone()
+    hshard = sharded.shard_plane_grid(mesh, full)
+    pkts = torch.as_tensor(inp["packets"], device=device)
+    calib = DeviceCalib.from_host(calib_mod.hdl32(), device=device)
+    g = GraphArrays(**{k: torch.as_tensor(np.array(v), device=device)
+                       for k, v in inp["graph"].items()})
+    K, M = inp["K"], inp["M"]
+    kw = dict(iterations=MULTICHIP_ITERATIONS,
+              reassociate_every=MULTICHIP_REASSOCIATE)
+
+    def register():
+        return sharded.register_sharded(mesh, pts, mask, shard, prior,
+                                        dense=dense, **kw)
+
+    def register_halo():
+        return halo.register_halo_sharded(mesh, hp, hm, hshard, prior,
+                                          halo=h, **kw)
+
+    def solve(lm: bool):
+        return sharded.solve_graph_sharded(
+            mesh, g, max_poses=K, max_landmarks=M,
+            iterations=MULTICHIP_GN, with_landmarks=lm)
+
+    def decode():
+        return sharded.decode_packets_sharded(dmesh, pkts, calib,
+                                              model="hdl32")
+
+    timer = _events_ms if cuda else _host_ms
+    ms = {}
+
+    def timed(name, fn):
+        """fn() once, its ms (one call) kept under `name`."""
+        got = []
+        ms[name] = timer(lambda: got.append(fn()), 1)
+        return got[0]
+
+    def sharded_path() -> dict:
+        reg = timed("register_once", register)
+        reg_h = timed("halo_once", register_halo)
+        xyz = timed("decode_once", decode)
+        g1, c1 = timed("graph_landmarks", lambda: solve(True))
+        g0, c0 = timed("graph", lambda: solve(False))
+        return {"register": {"q": reg.pose.q, "t": reg.pose.t,
+                             "n_matched": reg.n_matched},
+                "halo": {"q": reg_h.pose.q, "t": reg_h.pose.t,
+                         "n_matched": reg_h.n_matched},
+                "decode": xyz,
+                "graph_landmarks": {"q": g1.q, "t": g1.t, "l_pos": g1.l_pos,
+                                    "cost": c1},
+                "graph": {"q": g0.q, "t": g0.t, "cost": c0}}
+
+    # The warm pass: the kernels' first calls, their inputs recorded;
+    # decode and one GN iteration of the graph solve (no kernel of the
+    # port) for the card's libraries.
+    with capturing_kernel_inputs({}) as seen:
+        register(), register_halo(), decode()
+    sharded.solve_graph_sharded(mesh, g, max_poses=K, max_landmarks=M,
+                                iterations=1, with_landmarks=True)
+    errs = (check_captured(seen, "", where=f"multichip world {n}")
+            if cuda and rank == 0 else None)
+    del seen
+    sync()
+    _reset_launches()
+    before = dict(dist.COLLECTIVES)
+    out = sharded_path()
+    sync()
+    launches = _launches()
+    collectives = {k: dist.COLLECTIVES[k] - before[k] for k in before}
+    out = {k: ({kk: _np_out(vv) for kk, vv in v.items()}
+               if isinstance(v, dict) else _np_out(v))
+           for k, v in out.items()}
+    per_reg = {}
+    for name, fn in (("register", register), ("halo", register_halo)):
+        b = dict(dist.COLLECTIVES)
+        fn()
+        per_reg[name] = {k: dist.COLLECTIVES[k] - b[k] for k in b}
+    ms.update(register=timer(register, 3, 5),
+              halo=timer(register_halo, 3, 5), decode=timer(decode, 3, 5))
+    ref = None
+    if n == 1:
+        one = gicp.register(pts, mask, full, prior,
+                            vx.build_dense_index(full.grid), **kw)
+        one_h = gicp.register(pts, mask, full, prior, None, **kw)
+        g1, _ = optimize.solve_with_landmarks(
+            g, max_poses=K, max_landmarks=M, iterations=MULTICHIP_GN)
+        g0, _ = optimize.solve(g, max_poses=K, iterations=MULTICHIP_GN)
+        ref = {"register": {"q": _np_out(one.pose.q),
+                            "t": _np_out(one.pose.t),
+                            "n_matched": _np_out(one.n_matched)},
+               "halo": {"q": _np_out(one_h.pose.q),
+                        "t": _np_out(one_h.pose.t),
+                        "n_matched": _np_out(one_h.n_matched)},
+               "decode": _np_out(decode_packets(pkts, calib,
+                                                model="hdl32").xyz),
+               "graph_landmarks": {"q": _np_out(g1.q), "t": _np_out(g1.t),
+                                   "l_pos": _np_out(g1.l_pos)},
+               "graph": {"q": _np_out(g0.q), "t": _np_out(g0.t)}}
+    if _jax_modules():
+        raise AssertionError(f"rank {rank} loaded {_jax_modules()}")
+    return {"rank": rank, "out": out, "ref": ref, "launches": launches,
+            "collectives": collectives, "per_registration": per_reg,
+            "ms": ms, "errs": errs, "halo_rows": h,
+            "jax_modules": _jax_modules()}
+
+
+def _host_ms(fn, runs: int, inner: int = 1) -> float:
+    """The CPU rehearsal's stand-in for _events_ms: host ms per call."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        times.append((time.perf_counter() - t0) / inner * 1e3)
+    return float(np.median(times))
+
+
+def multichip_session_rank(device, slam: dict, paths: dict) -> dict:
+    """One rank of the distributed session on a pcap + INS log: a warm
+    run (run_offline + finalize()) whose registration-kernel inputs are
+    recorded (rank 0 holds each kernel against its plain version on
+    them) and whose stages are synchronized and their synchronizing
+    operations counted; then the measured run, kernel counts zeroed just
+    before and read just after, the collectives counted.  Returns the
+    measured run's results (numpy), the warm run's equal to the bit."""
+    from veloslam_tpu_torch.config import SlamConfig
+    from veloslam_tpu_torch.parallel import dist
+    from veloslam_tpu_torch.parallel.session import DistributedSlamSession
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device.type == "cuda"
+    cfg = SlamConfig.from_dict(slam)
+
+    def run(timers=None):
+        sess = DistributedSlamSession(cfg, device=device)
+        if timers is not None:
+            sess.timers = timers
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        stream = sess.run_offline(paths["pcap"], paths["ins"])
+        final = sess.finalize()
+        if cuda:
+            torch.cuda.synchronize(device)
+        return sess, stream, final, time.perf_counter() - t0
+
+    timers = SyncCountingStages()
+    with capturing_kernel_inputs({}) as seen:
+        wsess, wstream, wfinal, _ = run(timers)
+    errs = (check_captured(seen, "", where="multichip session")
+            if cuda and dist.process_index() == 0 else None)
+    del seen
+    _reset_launches()
+    before = dict(dist.COLLECTIVES)
+    sess, stream, final, wall = run()
+    launches = _launches()
+    collectives = {k: dist.COLLECTIVES[k] - before[k] for k in before}
+    for k in ("positions", "quaternions"):
+        if not np.array_equal(final[k], wfinal[k]):
+            raise AssertionError(f"multichip session rank "
+                                 f"{dist.process_index()}: the warm and "
+                                 f"measured runs' {k} differ")
+    if _jax_modules():
+        raise AssertionError(f"rank {dist.process_index()} loaded "
+                             f"{_jax_modules()}")
+    n = final["n_frames"]
+    sites = {}
+    for per_stage in timers.sites.values():
+        for site, c in per_stage.items():
+            sites[site] = sites.get(site, 0) + c
+    return {
+        "rank": sess.pid, "n_frames": n, "wall_s": wall,
+        "times_us": final["times_us"],
+        "stream_positions": stream["positions"],
+        "positions": final["positions"],
+        "quaternions": final["quaternions"],
+        "registered": np.asarray([f.registered for f in sess.trajectory]),
+        "n_keyframes": final["n_keyframes"],
+        "keyframe_times_us": final["keyframe_times_us"],
+        "closures": sorted(sess.closures),
+        "n_landmarks": final["n_landmarks"],
+        "tiles": sorted(sess.owned_tiles()),
+        "launches": launches, "collectives": collectives,
+        "syncs": sum(sites.values()), "sync_sites": sites,
+        "stages": {k: round(v["total_s"], 4)
+                   for k, v in wfinal["timing"].items()},
+        "errs": errs, "jax_modules": _jax_modules()}
+
+
+def _spawn(fn, nprocs: int, backend: str, device, *args) -> list:
+    """dist.spawn_ranks with the repository on the ranks' PYTHONPATH."""
+    from veloslam_tpu_torch.parallel import dist
+    return dist.spawn_ranks(fn, nprocs, backend=backend, device=str(device),
+                            args=args, timeout_s=MULTICHIP_TIMEOUT_S,
+                            env={"PYTHONPATH": REPO})
+
+
+def _max_diff(a: dict, b: dict, keys) -> dict:
+    return {k: float(np.abs(np.asarray(a[k], np.float64)
+                            - np.asarray(b[k], np.float64)).max())
+            for k in keys}
+
+
+def _check_replicas(where: str, ranks: list) -> None:
+    """Every replicated output equal to the bit on every rank."""
+    for r in ranks[1:]:
+        for k, v in ranks[0]["out"].items():
+            if k == "decode":
+                same = np.array_equal(r["out"][k], v)
+            else:
+                same = all(np.array_equal(r["out"][k][kk], vv)
+                           for kk, vv in v.items())
+            if not same:
+                raise AssertionError(f"{where}: rank {r['rank']}'s {k} "
+                                     f"differs from rank 0's")
+
+
+def phase_multichip(device, smi: str, name: str = "full") -> tuple:
+    """The multi-device slice (veloslam_tpu_torch/parallel/, the port of
+    __graft_entry__.py::dryrun_multichip), every rank a process spawned
+    with the "spawn" start method and the repository on PYTHONPATH, each
+    asserting it loaded nothing of JAX:
+
+      * world 1 on NCCL (on the CPU, a rehearsal: gloo): multichip_rank's
+        calls held to the port's single-process functions on the same
+        device — decode equal to the bit, register_sharded within
+        MULTICHIP_REG_ONE of gicp.register with the DenseIndex and
+        n_matched equal, register_halo_sharded within MULTICHIP_HALO_ONE
+        of gicp.register with the binary search (its step adds the
+        damping as one term, as the JAX halo does), the graph solves
+        within MULTICHIP_GRAPH_ONE of optimize's;
+      * worlds MULTICHIP_WORLDS on Gloo, every rank on one card: the same
+        calls, the replicas equal to the bit, each within the stated
+        tolerances of world 1 (MULTICHIP_REG_WORLD for the registrations:
+        the shards' dense boxes are centred on each shard's own voxels;
+        MULTICHIP_GRAPH_WORLD for the solves: the all_reduce sums the
+        partial normal equations in another order), decode equal to the
+        bit; ms per call and collectives per registration (2: one
+        all_gather per association block);
+      * DistributedSlamSession on 2 Gloo ranks: bench.py's drive per
+        frame + finalize() (MULTICHIP_GOLDEN's "full"; "small" on the
+        CPU) against the JAX session's golden: the ranks equal to the
+        bit, frames, times, keyframes, closures and landmark count equal,
+        owned tiles disjoint and each rank's equal to the JAX rank's,
+        their union the port's single-process map's tiles; positions
+        (stream and final) within per_frame's gates of the JAX ranks';
+        the stream within max(5 cm, the JAX session's own distance from
+        its single-process oracle + 2 cm) of the port's single-process
+        run_offline; frames/s, syncs and collectives per frame;
+      * scaling_bench at --nprocs 1 (NCCL) and 2 (gloo), its JSON lines.
+
+    The registration kernels must launch on the sharded path in every
+    world and in the session, the chain kernel not.  Returns (kernel
+    launches per part, check_captured's largest |Δ| per kernel)."""
+    import tempfile
+
+    from veloslam_tpu_torch.apps import scaling_bench
+    size = MULTICHIP_SIZES[name]
+    cuda = device.type == "cuda"
+    card = "cuda" if cuda else "cpu"
+    t0 = time.perf_counter()
+    inp = multichip_inputs(size)
+    print(f"[multichip] inputs: a {len(inp['pts'])}-point scan, a "
+          f"{len(inp['target']['keys'])}-row target "
+          f"({int((inp['target']['keys'] != 2**31 - 1).sum())} occupied, "
+          f"{size['voxel']} m), {len(inp['packets'])} packets, a "
+          f"{inp['n_poses']}-keyframe graph (K={inp['K']}, M={inp['M']}) "
+          f"({time.perf_counter() - t0:.1f} s, host)", flush=True)
+    launches, errs, worlds = {}, dict.fromkeys(REG_KERNELS, 0.0), {}
+    for S in (1,) + MULTICHIP_WORLDS:
+        backend = "nccl" if S == 1 and cuda else "gloo"
+        t1 = time.perf_counter()
+        ranks = _spawn(multichip_rank, S, backend, card, inp)
+        secs = time.perf_counter() - t1
+        _check_replicas(f"multichip world {S}", ranks)
+        for r in ranks:
+            if r["jax_modules"]:
+                raise AssertionError(f"multichip world {S} rank {r['rank']}"
+                                     f" loaded {r['jax_modules']}")
+        r0 = ranks[0]
+        worlds[S] = r0
+        launches[f"world{S}"] = r0["launches"]
+        if r0["errs"]:
+            errs = {k: max(errs[k], v) for k, v in r0["errs"].items()}
+        if S == 1:
+            ref = r0["ref"]
+            diffs = {
+                "register": _max_diff(r0["out"]["register"],
+                                      ref["register"], ("q", "t")),
+                "halo": _max_diff(r0["out"]["halo"], ref["halo"],
+                                  ("q", "t")),
+                "graph_landmarks": _max_diff(r0["out"]["graph_landmarks"],
+                                             ref["graph_landmarks"],
+                                             ("q", "t", "l_pos")),
+                "graph": _max_diff(r0["out"]["graph"], ref["graph"],
+                                   ("q", "t"))}
+            fails = []
+            if not np.array_equal(r0["out"]["decode"], ref["decode"]):
+                fails.append("decode differs from decode_packets")
+            for k, lim in (("register", MULTICHIP_REG_ONE),
+                           ("halo", MULTICHIP_HALO_ONE),
+                           ("graph_landmarks", MULTICHIP_GRAPH_ONE),
+                           ("graph", MULTICHIP_GRAPH_ONE)):
+                if max(diffs[k].values()) > lim:
+                    fails.append(f"{k} {diffs[k]} > {lim}")
+            for k in ("register", "halo"):
+                if int(r0["out"][k]["n_matched"]) != int(
+                        ref[k]["n_matched"]):
+                    fails.append(f"{k} n_matched {r0['out'][k]['n_matched']}"
+                                 f", single-process {ref[k]['n_matched']}")
+            off = np.abs(r0["out"]["register"]["t"] - inp["t_gt"]).max()
+            if off > 0.05:
+                fails.append(f"register {off} m from the true offset")
+            if fails:
+                raise AssertionError(f"multichip world 1: {fails}")
+            print(f"[multichip] world 1 ({backend}): held to the port's "
+                  f"single-process functions on the same device: decode "
+                  f"equal to the bit, max |Δ| {diffs}; n_matched "
+                  f"{int(r0['out']['register']['n_matched'])} / halo "
+                  f"{int(r0['out']['halo']['n_matched'])} equal; "
+                  f"registration {off:.4f} m from the true offset", flush=True)
+        else:
+            w1 = worlds[1]["out"]
+            diffs = {k: _max_diff(r0["out"][k], w1[k],
+                                  [kk for kk in w1[k] if kk != "n_matched"])
+                     for k in ("register", "halo", "graph_landmarks",
+                               "graph")}
+            fails = [f"{k} {diffs[k]} > {MULTICHIP_REG_WORLD}"
+                     for k in ("register", "halo")
+                     if max(diffs[k].values()) > MULTICHIP_REG_WORLD]
+            lim = MULTICHIP_GRAPH_WORLD
+            for k in ("graph_landmarks", "graph"):
+                d = r0["out"][k]["t"] - w1[k]["t"]
+                diffs[k]["t_rms"] = float(np.sqrt(np.mean(np.sum(
+                    d.astype(np.float64) ** 2, axis=1))))
+                if not (diffs[k]["t_rms"] <= lim["rms_m"]
+                        and diffs[k]["t"] <= lim["max_m"]
+                        and diffs[k]["q"] <= lim["q"]):
+                    fails.append(f"{k} {diffs[k]} beyond {lim}")
+            if not np.array_equal(r0["out"]["decode"], w1["decode"]):
+                fails.append("decode differs from world 1")
+            if r0["per_registration"]["register"] != {
+                    "all_reduce": 0, "all_gather": 2, "ring": 0}:
+                fails.append(f"collectives per registration "
+                             f"{r0['per_registration']['register']}")
+            if fails:
+                raise AssertionError(f"multichip world {S}: {fails}")
+            print(f"[multichip] world {S} (gloo, {S} ranks on one "
+                  f"{'card' if cuda else 'CPU'}): replicas equal to the "
+                  f"bit; max |Δ| from world 1 {diffs}; n_matched "
+                  f"{int(r0['out']['register']['n_matched'])} (world 1 "
+                  f"{int(w1['register']['n_matched'])}), halo "
+                  f"{int(r0['out']['halo']['n_matched'])} "
+                  f"({int(w1['halo']['n_matched'])}); decode equal to the "
+                  f"bit", flush=True)
+        if cuda and not (all(r0["launches"][k] for k in REG_KERNELS)
+                         and r0["launches"]["chain_factor"]
+                         == r0["launches"]["chain_solve"] == 0):
+            raise AssertionError(f"multichip world {S}: launches "
+                                 f"{r0['launches']}")
+        print(f"[multichip] world {S}: ms per call (rank 0, "
+              f"{'CUDA events' if cuda else 'host clock'}) "
+              f"{ {k: round(v, 3) for k, v in r0['ms'].items()} }; "
+              f"collectives per registration {r0['per_registration']}; "
+              f"collectives in the sharded calls {r0['collectives']}; halo "
+              f"{r0['halo_rows']} rows a side; kernel launches "
+              f"{r0['launches']}; {len(ranks)} rank(s) in {secs:.1f} s "
+              f"(spawn included); {smi}", flush=True)
+
+    # The distributed session against the JAX session's golden.
+    gold = np.load(MULTICHIP_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    session = "full" if name == "full" else "small"
+    drive = {d["name"]: d for d in cfg["drives"]}[session]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, seq = write_multihost_drive(drive, cfg["model"], tmp)
+        t1 = time.perf_counter()
+        ranks = _spawn(multichip_session_rank, cfg["n_procs"], "gloo", card,
+                       drive["slam"], paths)
+        secs = time.perf_counter() - t1
+        single, tiles = run_single_offline(paths, drive, device)
+    summary = check_multihost_session(ranks, single, tiles, gold, session)
+    r0 = ranks[0]
+    if r0["errs"]:
+        errs = {k: max(errs[k], v) for k, v in r0["errs"].items()}
+    launches["session"] = r0["launches"]
+    if cuda and not (all(r0["launches"][k] for k in REG_KERNELS)
+                     and r0["launches"]["chain_factor"]
+                     == r0["launches"]["chain_solve"] == 0):
+        raise AssertionError(f"multichip session: launches "
+                             f"{r0['launches']}")
+    n = r0["n_frames"]
+    top = sorted(r0["sync_sites"].items(), key=lambda kv: -kv[1])[:6]
+    print(f"[multichip] session ({cfg['n_procs']} gloo ranks on one "
+          f"{'card' if cuda else 'CPU'}, the {session} drive): {summary}; "
+          f"{n} frames in {r0['wall_s']:.3f} s: {n / r0['wall_s']:.2f} "
+          f"frames/s (run_offline + finalize, pcap read included; the "
+          f"ranks share the card); collectives per frame "
+          f"{ {k: round(v / n, 3) for k, v in r0['collectives'].items()} }"
+          f"; synchronizing operations {r0['syncs'] / n:.1f} per frame "
+          f"(warm run, top sites {top}); warm run's stage seconds "
+          f"synchronized {r0['stages']}; kernel launches {r0['launches']}; "
+          f"{cfg['n_procs']} ranks in {secs:.1f} s (spawn, warm and "
+          f"measured runs); {smi}", flush=True)
+
+    for nprocs, backend in ((1, "nccl" if cuda else "gloo"), (2, "gloo")):
+        rec = scaling_bench.run(nprocs, backend=backend, device=card,
+                                timeout_s=MULTICHIP_TIMEOUT_S,
+                                **MULTICHIP_BENCH[name])
+        print(f"[multichip] scaling_bench --nprocs {nprocs} --backend "
+              f"{backend}: {json.dumps(rec)}", flush=True)
+    print(f"[multichip] phase {time.perf_counter() - t0:.1f} s; {smi}",
+          flush=True)
+    return launches, errs
+
+
+def write_multihost_drive(drive: dict, model: str, out_dir: str):
+    """A multihost golden drive as its generator writes it: drifted as
+    write_pipeline_drive writes it, or with no drift the simulator's own
+    pcap + INS log."""
+    if drive["drift_rate"]:
+        return write_pipeline_drive(drive, model, out_dir)
+    from veloslam_tpu_torch.io import simulate as sim
+    seq = sim.generate_sequence(
+        duration_s=drive["duration_s"], model=model, seed=drive["seed"],
+        world=sim.World.demo(**drive["world"]),
+        trajectory=sim.circle_trajectory(**drive["circle"]))
+    return sim.write_sequence(seq, out_dir, name=drive["name"]), seq
+
+
+def run_single_offline(paths: dict, drive: dict, device) -> tuple:
+    """The port's single-process oracle of the session check: run_offline
+    on one device (no finalize, as the JAX test's oracle); (positions,
+    the map's tiles)."""
+    from veloslam_tpu_torch.config import SlamConfig
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    pipe = SlamPipeline(SlamConfig.from_dict(drive["slam"]), device=device)
+    res = pipe.run_offline(paths["pcap"], paths["ins"])
+    tiles = sorted(set(pipe.map._patches) | set(pipe.map._spilled))
+    return res["positions"], [tuple(map(int, t)) for t in tiles]
+
+
+def check_multihost_session(ranks: list, single: np.ndarray, tiles: list,
+                            gold, name: str) -> str:
+    """The port's distributed session (session ranks' results) against
+    the JAX session golden (multihost_golden_seed3.npz) and the port's
+    single-process run_offline: see phase_multichip.  Raises on a
+    failure; returns a summary."""
+    def g(r, k):
+        return gold[f"{name}_p{r}_{k}"]
+
+    fails = []
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for k in ("times_us", "stream_positions", "positions",
+                  "quaternions", "registered"):
+            if not np.array_equal(r[k], r0[k]):
+                fails.append(f"rank {r['rank']}'s {k} differ from rank 0's")
+        if r["jax_modules"]:
+            fails.append(f"rank {r['rank']} loaded {r['jax_modules']}")
+    if not np.array_equal(r0["times_us"], g(0, "times_us")):
+        fails.append("frame times differ from the golden's")
+    if not np.array_equal(r0["registered"], g(0, "registered")):
+        fails.append("registered flags differ from the golden's")
+    if (r0["n_keyframes"] != int(g(0, "n_keyframes"))
+            or not np.array_equal(r0["keyframe_times_us"],
+                                  g(0, "keyframe_times_us"))):
+        fails.append(f"{r0['n_keyframes']} keyframes, golden "
+                     f"{int(g(0, 'n_keyframes'))}")
+    want = sorted(map(tuple, g(0, "closures").tolist()))
+    if sorted(map(tuple, r0["closures"])) != want:
+        fails.append(f"closures {r0['closures']}, golden {want}")
+    if r0["n_landmarks"] != int(g(0, "n_landmarks")):
+        fails.append(f"{r0['n_landmarks']} landmarks, golden "
+                     f"{int(g(0, 'n_landmarks'))}")
+    sets = [set(map(tuple, r["tiles"])) for r in ranks]
+    for r, s in zip(ranks, sets):
+        if s != set(map(tuple, g(r["rank"], "tiles").tolist())):
+            fails.append(f"rank {r['rank']}'s tiles {sorted(s)}, the JAX "
+                         f"rank's {g(r['rank'], 'tiles').tolist()}")
+    if sum(map(len, sets)) != len(set().union(*sets)):
+        fails.append("owned tiles overlap")
+    if set().union(*sets) != set(tiles):
+        fails.append(f"tiles {sorted(set().union(*sets))}, the "
+                     f"single-process map's {tiles}")
+    offs = {}
+    for k in ("stream_positions", "positions"):
+        d = r0[k] - g(0, k)
+        offs[k] = (float(np.linalg.norm(d[:, :2], axis=1).max()),
+                   float(np.abs(d[:, 2]).max()))
+        if not (offs[k][0] <= 0.05 and offs[k][1] <= Z_LIMIT_M):
+            fails.append(f"{k} {offs[k]} m from the golden (x, y limit "
+                         f"0.05, z {Z_LIMIT_M})")
+    jax_own = float(np.linalg.norm(g(0, "stream_positions")
+                                   - gold[f"{name}_oracle_stream_positions"],
+                                   axis=1).max())
+    limit = max(0.05, jax_own + 0.02)
+    own = float(np.linalg.norm(r0["stream_positions"] - single,
+                               axis=1).max())
+    if not own <= limit:
+        fails.append(f"stream {own} m from the port's single-process "
+                     f"run_offline (limit {limit})")
+    if fails:
+        raise AssertionError(f"multichip session {name}: {fails}")
+    return (f"ranks equal to the bit; {len(r0['times_us'])} frames "
+            f"({int(r0['registered'].sum())} registered), "
+            f"{r0['n_keyframes']} keyframes, {len(r0['closures'])} closures"
+            f", {r0['n_landmarks']} landmarks, each equal to the JAX "
+            f"session's; tiles {[len(s) for s in sets]} disjoint, each "
+            f"rank's the JAX rank's, their union the single-process map's "
+            f"{len(tiles)}; max from the JAX ranks (x, y / z): stream "
+            f"{offs['stream_positions'][0]:.2e} / "
+            f"{offs['stream_positions'][1]:.2e} m, final "
+            f"{offs['positions'][0]:.2e} / {offs['positions'][1]:.2e} m; "
+            f"stream {own:.4f} m from the port's single-process run_offline"
+            f" (the JAX session {jax_own:.4f} m from its own; limit "
+            f"{limit:.4f})")
+
+
 def main() -> int:
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -3073,6 +3781,7 @@ def main() -> int:
     phase_apps(device, smi)
     phase_pcg(device, smi)
     long_launches = phase_long_drive(device, smi)
+    multichip_launches, multichip_errs = phase_multichip(device, smi)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "veloslam_tpu"))
     if loaded:
@@ -3085,7 +3794,10 @@ def main() -> int:
                 "paths_max_abs_err": paths_errs[name],
                 "live_launches": {part: got[name] for part, got in
                                   live_launches.items()},
-                "live_max_abs_err": live_errs[name]}
+                "live_max_abs_err": live_errs[name],
+                "multichip_launches": {part: got[name] for part, got in
+                                       multichip_launches.items()},
+                "multichip_max_abs_err": multichip_errs[name]}
 
     kernels = [
         {"name": "fused_normal_equations", "route": "cuda",
@@ -3119,6 +3831,10 @@ def main() -> int:
          "live_launches": {part: got["chain_factor"] + got["chain_solve"]
                            for part, got in live_launches.items()},
          "live_max_abs_err": None,       # not launched on the live path
+         "multichip_launches": {part: got["chain_factor"]
+                                + got["chain_solve"]
+                                for part, got in multichip_launches.items()},
+         "multichip_max_abs_err": None,  # not launched: dense solves
          **chain_record},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

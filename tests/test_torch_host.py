@@ -170,8 +170,9 @@ def test_ate_and_interpolate_positions_equal(seqs):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the registration methods, live
-    mode's UDP, INS and packet-pump modules and the tools among them)
-    loads nothing of jax and nothing of the JAX package."""
+    mode's UDP, INS and packet-pump modules, the tools, the multi-device
+    package and the scaling bench among them) loads nothing of jax and
+    nothing of the JAX package."""
     code = (
         "import sys, pkgutil, importlib, veloslam_tpu_torch as p\n"
         "names = set()\n"
@@ -182,7 +183,9 @@ def test_port_imports_no_jax():
         "    'registration.d2d', 'registration.ndt', 'registration.gicp',\n"
         "    'registration.voxel', 'io.udp', 'io.ins', 'io.native',\n"
         "    'apps.replay', 'apps.inspect', 'apps.slam_run',\n"
-        "    'utils.viewer', 'utils.dumps', 'map.landmarks')}\n"
+        "    'utils.viewer', 'utils.dumps', 'map.landmarks',\n"
+        "    'parallel.mesh', 'parallel.dist', 'parallel.sharded',\n"
+        "    'parallel.halo', 'parallel.session', 'apps.scaling_bench')}\n"
         "assert want <= names, sorted(want - names)\n"
         "top = ('jax', 'jaxlib', 'veloslam_tpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in top)\n"
@@ -292,13 +295,17 @@ def test_ins_txt_round_trip_equal(seqs, tmp_path):
 
 def test_slam_config_defaults_equal():
     """The port's SlamConfig tree equals the JAX package's, field for
-    field, but for the multi-device layout (`mesh`), not ported yet."""
+    field, the multi-device layout (`mesh`) included."""
     import dataclasses
 
     from veloslam_tpu import config as jcfg
     want = dataclasses.asdict(jcfg.SlamConfig())
-    want.pop("mesh")
     assert dataclasses.asdict(cfgmod.SlamConfig()) == want
+    mc = cfgmod.MeshConfig(data_axis=2, map_axis=4)
+    assert dataclasses.asdict(mc) == dataclasses.asdict(
+        jcfg.MeshConfig(data_axis=2, map_axis=4))
+    assert mc.n_devices == jcfg.MeshConfig(data_axis=2,
+                                           map_axis=4).n_devices == 8
     sc = cfgmod.SensorConfig(laser_mask=(0, 3, 5))
     np.testing.assert_array_equal(
         sc.enabled_lasers(),

@@ -33,7 +33,7 @@ import torch
 import chip_smoke as cs
 from torch_helpers import small_threads  # noqa: F401
 from veloslam_tpu.runtime.pipeline import SlamPipeline as JSlamPipeline
-from veloslam_tpu_torch.config import SlamConfig
+from veloslam_tpu_torch.config import MeshConfig, SlamConfig
 from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
 
 PER_FRAME_STAGES = {"decode", "compensate", "assemble", "frame",
@@ -155,6 +155,7 @@ def test_paths_golden_config_is_the_generators():
         cs.PATHS_MIN_CLOSURES)
     for d in cfg["per_frame"] + cfg["batched"]:
         back = dataclasses.asdict(SlamConfig.from_dict(d["slam"]))
+        assert back.pop("mesh") == dataclasses.asdict(MeshConfig())
         assert json.loads(json.dumps(back)) == d["slam"]
     for d in cfg["per_frame"]:
         assert d["slam"]["registration"]["method"] == d["name"][:3]
@@ -253,6 +254,7 @@ def test_golden_config_is_the_generators():
     assert set(drives) == set(cs.PERFRAME_MIN_CLOSURES)
     for d in drives.values():
         back = dataclasses.asdict(SlamConfig.from_dict(d["slam"]))
+        assert back.pop("mesh") == dataclasses.asdict(MeshConfig())
         assert json.loads(json.dumps(back)) == d["slam"]
     full = SlamConfig.from_dict(drives["full"]["slam"])
     assert full.pipeline.packets_per_batch == 512

@@ -1,10 +1,10 @@
 """Single typed configuration tree for the whole engine.
 
 A jax-free copy of veloslam_tpu/config.py (importing the original runs
-the JAX package's __init__).  `MeshConfig`, the multi-device layout, is
-left out until the multi-device slice is ported, so `SlamConfig` has no
-`mesh` field; every other dataclass and default is the original's, and
-tests/test_torch_host.py holds them equal as `dataclasses.asdict`.
+the JAX package's __init__): every dataclass and default is the
+original's, `MeshConfig` (the multi-device layout, read by
+veloslam_tpu_torch.parallel) included, and tests/test_torch_host.py holds
+them equal as `dataclasses.asdict`.
 """
 
 from __future__ import annotations
@@ -150,6 +150,22 @@ class GraphConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh / sharding layout: `data_axis` × `map_axis` ranks.
+
+    Axes: "data" batches scans/packets, "map" shards map patches and
+    pose-graph edges (veloslam_tpu_torch/parallel/mesh.py).
+    """
+
+    data_axis: int = 1
+    map_axis: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data_axis * self.map_axis
+
+
+@dataclasses.dataclass(frozen=True)
 class SlamConfig:
     sensor: SensorConfig = dataclasses.field(default_factory=SensorConfig)
     pipeline: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
@@ -157,6 +173,7 @@ class SlamConfig:
         default_factory=RegistrationConfig)
     map: MapConfig = dataclasses.field(default_factory=MapConfig)
     graph: GraphConfig = dataclasses.field(default_factory=GraphConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def replace(self, **kw) -> "SlamConfig":
         return dataclasses.replace(self, **kw)
@@ -164,7 +181,8 @@ class SlamConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "SlamConfig":
         """Inverse of `dataclasses.asdict` (lists, as JSON gives tuples
-        back, become tuples)."""
+        back, become tuples); a dict without "mesh" (the goldens keep
+        none) takes the default layout."""
         def sub(klass, values):
             return klass(**{k: tuple(v) if isinstance(v, list) else v
                             for k, v in values.items()})
@@ -172,4 +190,5 @@ class SlamConfig:
                    pipeline=sub(PipelineConfig, d["pipeline"]),
                    registration=sub(RegistrationConfig, d["registration"]),
                    map=sub(MapConfig, d["map"]),
-                   graph=sub(GraphConfig, d["graph"]))
+                   graph=sub(GraphConfig, d["graph"]),
+                   mesh=sub(MeshConfig, d.get("mesh", {})))

@@ -244,22 +244,31 @@ def _schur_step(g: GraphArrays, H_ee, b_ee, H_po, b_po, All, b_l, T,
     return g._replace(q=new.q, t=new.t, l_pos=g.l_pos + delta_l)
 
 
+def _pose_step(g: GraphArrays, H, b, max_poses: int, damping: float,
+               prior_weight: float) -> GraphArrays:
+    """One pose-only Gauss-Newton step from the assembled H, b (H is
+    damped and gauged in place): the dense Cholesky solve, retracted on
+    the first n_poses poses."""
+    K = max_poses
+    H.diagonal().add_(damping)
+    H[:6, :6].diagonal().add_(prior_weight)                     # gauge
+    delta = -_cho_solve(H, b).reshape(K, 6)
+    pose_mask = (torch.arange(K, device=g.q.device) < g.n_poses)[:, None]
+    delta = torch.where(pose_mask, delta, 0.0)
+    new = se3.retract(se3.Pose(g.q, g.t), delta)
+    return g._replace(q=new.q, t=new.t)
+
+
 def solve(g: GraphArrays, *, max_poses: int, iterations: int = 8,
           prior_weight: float = 1e6, damping: float = 1e-4
           ) -> Tuple[GraphArrays, SolveStats]:
     """Pose-only Gauss-Newton over odometry + loop-closure edges; a fixed
     iteration count with no host read."""
     K = max_poses
-    pose_mask = (torch.arange(K, device=g.q.device) < g.n_poses)[:, None]
     c0 = c1 = None
     for it in range(iterations):
         H, b, cost = _assemble_pose_system(g, K)
-        H.diagonal().add_(damping)
-        H[:6, :6].diagonal().add_(prior_weight)                 # gauge
-        delta = -_cho_solve(H, b).reshape(K, 6)
-        delta = torch.where(pose_mask, delta, 0.0)
-        new = se3.retract(se3.Pose(g.q, g.t), delta)
-        g = g._replace(q=new.q, t=new.t)
+        g = _pose_step(g, H, b, K, damping, prior_weight)
         c0 = cost if it == 0 else c0
         c1 = cost
     if c0 is None:
