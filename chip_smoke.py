@@ -6,8 +6,10 @@ registration methods), the streaming odometry's fused and chained
 paths and slam_run --fast's engine, live mode over UDP (per frame and
 fast), the tools (slam_run --bev, inspect, the landmark extractors),
 the matrix-free PCG graph solvers that sessions above 2048 keyframes
-run, and the multi-device slice (sharded registration, decode and graph
-solves, the distributed session) on ranks sharing the card.
+run, the multi-device slice (sharded registration, decode and graph
+solves, the distributed session) on ranks sharing the card, and the
+HDL-64 and VLP-16 sensor families through every single-card entry
+point.
 
 Run on a machine with an NVIDIA H100, from the repository root or any
 other directory (the script puts its own directory first on sys.path):
@@ -82,10 +84,10 @@ code is non-zero:
                 closure verification's C candidates) and each kernel
                 held against its plain version on them (NE and the GN
                 step at the kernel phase's tolerances, the gathers
-                bitwise) and timed at a frame's shape; 3 measured runs,
+                bitwise) and timed at a frame's shape; 2 measured runs,
                 each checked (frames and times,
                 keyframe times, closures mid-session and in all,
-                trajectory, landmark count, ATE), all 3 equal to the bit;
+                trajectory, landmark count, ATE), both equal to the bit;
                 the registration kernels launched, the chain kernel not;
                 a checkpoint round trip; frames/s; then one run that
                 synchronizes at each stage's end, for the stage seconds
@@ -94,7 +96,7 @@ code is non-zero:
                 (tests/fixtures/paths_golden_seed3.npz): the per-frame
                 pipeline of phase per_frame with registration method
                 "d2d" and then "ndt" (a warm run whose kernel inputs are
-                captured, 3 runs each checked with the registered flags
+                captured, 2 runs each checked with the registered flags
                 and equal to the bit, the last synchronized at each
                 stage's end with its synchronizing operations counted;
                 gather_i32 launched at least once per GN iteration of
@@ -166,6 +168,23 @@ code is non-zero:
                 apps/scaling_bench at 1 (NCCL) and 2 (Gloo) ranks; the
                 registration kernels held against their plain versions on
                 the sharded path's and the session's own inputs.
+  15. models  — the two other sensor families, the HDL-64 (with a
+                per-unit calibration file, db.xml, written by the port's
+                to_xml and read through SensorConfig.calibration_path) and
+                the VLP-16, against the JAX golden
+                (tests/fixtures/models_golden_seed3.npz): per model the
+                bulk step at bench.py's width (16384 packets, the model's
+                slots_for_batch frame slots: 50 and 222), then bench.py's
+                7 s drive through FullSlam + finalize_device,
+                run_offline_batched + finalize(), run_offline + finalize()
+                and slam_run --fast, each twice, equal to the bit, with
+                the gates of phases fullslam, pipeline, per_frame and
+                paths; the HDL-64 also live: scripted per frame and fast
+                against the golden, then over loopback UDP at 1x its
+                3617 pkt/s (fast: none lost).  Every registration kernel
+                held against its plain version on each part's own inputs,
+                at the bulk step's shapes with its device µs beside the
+                bound.
 Then one JSON line with the kernel records (launches: one pipeline run,
 the chain kernel's one long-drive run; per_frame_launches: one per_frame
 run; per_frame_max_abs_err: the largest |Δ| from the plain version on the
@@ -173,7 +192,8 @@ per_frame path's own inputs; paths_launches and paths_max_abs_err: the
 same for each part of phase paths; live_launches and live_max_abs_err:
 the same for each run of phase live; multichip_launches and
 multichip_max_abs_err: rank 0's in each world and in the session of phase
-multichip), and last the result line.
+multichip; models_launches and models_max_abs_err: each part of phase
+models, the bulk step's for one batch), and last the result line.
 Imports nothing of JAX or of the JAX package, and checks that before the
 result line.
 """
@@ -225,12 +245,14 @@ TIMED_RUNS = 20
 FULLSLAM_RUNS = 5
 PIPELINE_RUNS = 3
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
-# device-memory bytes/s and float32 FLOP/s outside the tensor cores.  A
-# kernel's bound is the larger of the bytes it must move (each input byte
-# read once, each output byte written once) and its operations over these.
+# device-memory bytes/s, and float32 and float64 FLOP/s outside the
+# tensor cores.  A kernel's bound is the larger of the bytes it must move
+# (each input byte read once, each output byte written once) and its
+# operations over the rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# Float operations per point with a correspondence in the normal
+FP64_FLOP_PER_S = 34e12
+# Float64 operations per point with a correspondence in the normal
 # equations: pose transform 21, residual 8, Huber weight 3, Jacobian 9,
 # the 29 sums 69 (an FMA counts 2).
 NE_FLOP_PER_HIT = 110
@@ -288,12 +310,12 @@ CHAIN_RCP_OPS = 4
 CHAIN_FACTOR_OPS = 13 + 6 * (CHAIN_RCP_OPS + 2)
 PERFRAME_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                "perframe_golden_seed3.npz")
-PERFRAME_RUNS = 3
+PERFRAME_RUNS = 2
 PATHS_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                             "paths_golden_seed3.npz")
 # Runs of each per-frame method after the warm one: the last synchronizes
 # at each stage's end, the others are timed; all are checked and compared.
-PATHS_RUNS = 3
+PATHS_RUNS = 2
 PATHS_MIN_CLOSURES = {"d2d_full": 3, "ndt_full": 3, "d2d_small": 1,
                       "ndt_small": 1}
 # Every this many D2D / NDT registrations of the warm run are run again
@@ -387,6 +409,14 @@ ASSOC_MARGIN_M = 1e-3
 # trajectory 1.0 mm from the golden's), and CPU reruns move its live
 # stream by up to 3.8 mm.  8 cm leaves 2.2 cm above the reading.
 ASSOC_FLIP_LIMIT_M = 0.08
+MODELS_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                             "models_golden_seed3.npz")
+# Phase `models`: runs of each entry point per model (the first with its
+# kernel inputs captured; all equal to the bit), and the bulk step's
+# packets (bench.py's width) and timed steps.
+MODELS_RUNS = 2
+MODELS_BULK_PACKETS = 16384
+MODELS_BULK_STEPS = 5
 
 
 def _quat_mul_np(a, b):
@@ -531,10 +561,11 @@ def _device_us(fn, calls: int = 20, tries: int = 3) -> float:
     return 0.0
 
 
-def _bound(nbytes: float, flops: float = 0.0) -> tuple:
+def _bound(nbytes: float, flops: float = 0.0,
+           flop_per_s: float = FP32_FLOP_PER_S) -> tuple:
     """(bound_ms, bound_by): the least time the card could take."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_ops = flops / flop_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -549,8 +580,9 @@ def _share(bound_ms: float, dev_us: float) -> str:
 def _ne_bound(F: int, P: int, hits: int) -> tuple:
     """The normal equations' bound: each hit flag, and p, μ, n (36 B) of
     each point with a correspondence; per slot the pose in (28 B) and H,
-    b, the sums and the new pose out (~220 B)."""
-    return _bound(F * P + 36 * hits + 248 * F, NE_FLOP_PER_HIT * hits)
+    b, the sums and the new pose out (~220 B); the arithmetic in float64."""
+    return _bound(F * P + 36 * hits + 248 * F, NE_FLOP_PER_HIT * hits,
+                  FP64_FLOP_PER_S)
 
 
 def phase_device() -> str:
@@ -701,15 +733,25 @@ def _ne_diff(name: str, F: int, P: int, x, r, rel: bool = False) -> float:
     return d
 
 
+def _f64(x):
+    """Float tensors (in Poses too) as float64; the rest as they are."""
+    if isinstance(x, tuple):
+        items = [_f64(y) for y in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x.double() if x.is_floating_point() else x
+
+
 def _check_ne(F: int, P: int, args, **kw) -> dict:
-    """NE-only mode against normal_equations_plain: |Δ| ≤ 1e-4·max|ref| +
-    1e-3 on H and b (float32 sums in another order), 1e-4 relative on the
-    sums, n_hit exact, two launches bitwise equal.  `kw`: huber_delta,
-    max_dist."""
+    """NE-only mode against normal_equations_plain evaluated in float64 on
+    the same float32 inputs (the kernel's arithmetic is float64; the
+    plain version's float32 evaluation is itself up to 1e-2 off b where
+    b's terms cancel): |Δ| ≤ 1e-4·max|ref| + 1e-3 on H and b, 1e-4
+    relative on the sums, n_hit exact, two launches bitwise equal.  `kw`:
+    huber_delta, max_dist."""
     from veloslam_tpu_torch.registration import normal_equations as ne
     got = ne.fused_normal_equations(*args, **kw)
     again = ne.fused_normal_equations(*args, **kw)
-    ref = ne.normal_equations_plain(*args, **kw)
+    ref = ne.normal_equations_plain(*(_f64(a) for a in args), **kw)
     torch.cuda.synchronize()
     if not all(_same_bits(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"NE kernel not bitwise repeatable at {F}x{P}")
@@ -724,25 +766,28 @@ def _check_ne(F: int, P: int, args, **kw) -> dict:
 
 def _check_gn(F: int, P: int, args, damping: float = 1e-6,
               edge_slots: bool = True, **kw) -> dict:
-    """gn_iteration's kernel against gn_iteration_plain: the ok and clamp
+    """gn_iteration's kernel against gn_iteration_plain evaluated in
+    float64 on the same float32 inputs (as _check_ne): the ok and clamp
     decisions exactly (and, with `edge_slots`, the expected ones of
     _ne_inputs' edge slots), n_hit exact,
     H, b and err at _check_ne's tolerances with NaNs counted equal, a
     rejected slot's pose unchanged bitwise, two calls bitwise equal.  The
     new pose is held within 1e-5 m and 1e-6 per quaternion component of
-    the plain step taken from the kernel's own H, b and n_hit: both solve
-    the same float32 6×6 system, with another Cholesky.  The fully plain
-    pose also differs by H's sum order times the conditioning of H; its
-    offset is printed.  `kw`: huber_delta, max_dist."""
+    the plain step taken in float64 from the kernel's own H, b and n_hit
+    (the float32 H, b it returns): both solve the same 6×6 system in
+    float64.  The fully plain pose also differs by H's and b's rounding to
+    float32 times the conditioning of H; its offset is printed.  `kw`:
+    huber_delta, max_dist."""
     from veloslam_tpu_torch.core import se3
     from veloslam_tpu_torch.registration import normal_equations as ne
     pts, q, t, mu, n, hit = args
     pose = se3.Pose(q, t)
     got = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping, **kw)
     again = ne.gn_iteration(pts, pose, mu, n, hit, damping=damping, **kw)
-    ref = ne.gn_iteration_plain(pts, pose, mu, n, hit, damping=damping,
-                                **kw)
-    own = ne._gn_step(pose, got.H, got.b, got.n_hit, damping)
+    ref = ne.gn_iteration_plain(*_f64((pts, pose, mu, n)), hit,
+                                damping=damping, **kw)
+    own = ne._gn_step(_f64(pose), got.H.double(), got.b.double(), got.n_hit,
+                      damping)
     torch.cuda.synchronize()
 
     def leaves(g):
@@ -771,10 +816,18 @@ def _check_gn(F: int, P: int, args, damping: float = 1e-6,
     errs["pose_q"] = _diff("pose q", got.pose.q, own.q)
     if not (errs["pose_t"] <= 1e-5 and errs["pose_q"] <= 1e-6):
         raise AssertionError(f"pose at {F}x{P}: |dt| {errs['pose_t']} m, "
-                             f"|dq| {errs['pose_q']} from the plain step on "
-                             "the kernel's H, b")
+                             f"|dq| {errs['pose_q']} from the plain float64 "
+                             "step on the kernel's H, b")
     errs["plain_pose_t"] = _diff("plain pose t", got.pose.t, ref.pose.t)
     errs["plain_pose_q"] = _diff("plain pose q", got.pose.q, ref.pose.q)
+    # Shown, not gated: how far the plain version's float32 evaluation
+    # lands from its float64 one (b), and a float32 step on the kernel's
+    # own H, b from the float64 step.
+    ref32 = ne.gn_iteration_plain(pts, pose, mu, n, hit, damping=damping,
+                                  **kw)
+    own32 = ne._gn_step(pose, got.H, got.b, got.n_hit, damping)
+    errs["f32_b"] = _diff("float32 b", ref32.b, ref.b)
+    errs["f32_step_t"] = _diff("float32 step t", own32.t, own.t)
     return errs
 
 
@@ -984,16 +1037,19 @@ def phase_drive(device, gold, cfg: dict) -> dict:
     return total
 
 
-def _bulk_inputs(device, batch_packets: int = 16384):
+def _bulk_inputs(device, batch_packets: int = 16384, model: str = "hdl32",
+                 calib=None):
     """bench.py's bulk inputs, built with the port's simulator: a 0.35 s
-    drive tiled to `batch_packets`, a 64-sample straight-line INS window."""
+    drive of `model` (simulated with `calib`, else its built-in table)
+    tiled to `batch_packets` at the model's packet rate, a 64-sample
+    straight-line INS window."""
     from veloslam_tpu_torch.io import simulate as sim
     from veloslam_tpu_torch.runtime.odometry import packets_per_second
-    seq = sim.generate_sequence(duration_s=0.35, model="hdl32", seed=0,
-                                world=sim.World.demo(1))
+    seq = sim.generate_sequence(duration_s=0.35, model=model, seed=0,
+                                world=sim.World.demo(1), calib=calib)
     pkts = np.concatenate([seq["packets"]] * (
         batch_packets // len(seq["packets"]) + 1))[:batch_packets]
-    rel_s = (np.arange(batch_packets) / packets_per_second("hdl32")
+    rel_s = (np.arange(batch_packets) / packets_per_second(model)
              ).astype(np.float32)
     m = 64
     track_rel = np.linspace(-0.1, rel_s[-1] + 0.1, m).astype(np.float32)
@@ -1098,9 +1154,10 @@ def _fullslam_drive(device, drive: dict, model: str):
 
 
 def run_fullslam(seq, track, eng, drive: dict, floor: int) -> tuple:
-    """Stream the drive, then queue and read the finalize sweep: returns
-    (results on the host, stream s, finalize s); each timed span ends
-    in a device synchronize."""
+    """Stream the drive, then queue and read the finalize sweep (its
+    candidate budget the drive's "max_candidates", else sweep_budget's
+    from `floor`): returns (results on the host, stream s, finalize s);
+    each timed span ends in a device synchronize."""
     from veloslam_tpu_torch.runtime.pipeline import sweep_budget
     sync = (torch.cuda.synchronize if eng.device.type == "cuda"
             else (lambda: None))
@@ -1110,7 +1167,7 @@ def run_fullslam(seq, track, eng, drive: dict, floor: int) -> tuple:
                    batch=drive["batch"])
     sync()
     t1 = time.perf_counter()
-    budget = sweep_budget(eng, floor)
+    budget = drive.get("max_candidates") or sweep_budget(eng, floor)
     dev = eng.finalize_device(max_candidates=budget, **drive["finalize"])
     sync()
     t2 = time.perf_counter()
@@ -1176,12 +1233,14 @@ def _check_repeats(where: str, runs: list) -> None:
                                  f"{differ}")
 
 
-def _check_fullslam(host, eng, seq, drive, gold, launches, device):
-    """One run of the full drive against the JAX golden."""
+def _check_fullslam(host, eng, seq, drive, gold, launches, device,
+                    name: str = "full"):
+    """One run of a drive against the JAX golden's "<name>_*" record: at
+    least 3 closures accepted (as many as the golden where it has fewer)."""
     from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
 
     def g(k):
-        return gold[f"full_{k}"]
+        return gold[f"{name}_{k}"]
 
     n = int(host["n_frames"])
     times_us = (host["traj_time"][:n].astype(np.float64) * 1e6
@@ -1212,7 +1271,7 @@ def _check_fullslam(host, eng, seq, drive, gold, launches, device):
                 f"fullslam: {flag} pairs differ from the golden:\n"
                 f"{pairs(host, flag)}\n{pairs(gh, flag)}")
     n_acc = int(host["n_accepted"])
-    if n_acc < 3:
+    if n_acc < min(3, int(g("accept").sum())):
         raise AssertionError(f"fullslam: {n_acc} closures accepted, want 3+")
     pos = host["traj_t"][:n]
     if not (np.isfinite(pos).all() and np.isfinite(host["traj_q"][:n]).all()):
@@ -1260,7 +1319,8 @@ def _check_fullslam(host, eng, seq, drive, gold, launches, device):
             drive["engine"]["reg_iterations"] * nb + 6 + 20 + 20 + 1,
         "gather_i32": blocks * nb + 14,
         "gather_rows8": blocks * nb + 14}, device)
-    print(f"[fullslam] {len(seq['packets'])} packets in {nb} batches of "
+    print(f"[fullslam] {name}: {len(seq['packets'])} packets in {nb} "
+          f"batches of "
           f"{drive['batch']} (bootstrap ramp first), {n} frames, {kf_n} "
           f"keyframes (ring {eng.ring.capacity}); "
           f"{int(host['cand_valid'].sum())} candidates of "
@@ -1276,18 +1336,21 @@ def _check_fullslam(host, eng, seq, drive, gold, launches, device):
           f"{float(g('ate_raw_ins')):.3f}, limit {limit:.4f})", flush=True)
 
 
-def write_pipeline_drive(drive: dict, model: str, out_dir: str):
+def write_pipeline_drive(drive: dict, model: str, out_dir: str,
+                         calib=None):
     """A golden drive as bench.py::_make_drive writes it, with the port's
     writers: the sequence (on a circle, or with "circle": None the
-    simulator's default trajectory), its pcap (position packets every 1 s)
-    and INS log, the INS positions drifted in +y."""
+    simulator's default trajectory; simulated with `calib`, a LaserCalib,
+    else the model's built-in table), its pcap (position packets every
+    1 s) and INS log, the INS positions drifted in +y."""
     from veloslam_tpu_torch.io import packets as pk
     from veloslam_tpu_torch.io import simulate as sim
     circle = drive.get("circle")
     seq = sim.generate_sequence(
         duration_s=drive["duration_s"], model=model, seed=drive["seed"],
         world=sim.World.demo(**drive["world"]),
-        trajectory=sim.circle_trajectory(**circle) if circle else None)
+        trajectory=sim.circle_trajectory(**circle) if circle else None,
+        calib=calib)
     paths = sim.write_sequence(seq, out_dir, name=drive["name"])
     ins = pk.read_ins_txt(paths["ins"])
     ts = (ins["t_us"] - ins["t_us"][0]) * 1e-6
@@ -1296,6 +1359,41 @@ def write_pipeline_drive(drive: dict, model: str, out_dir: str):
                          [np.zeros_like(ts), drive["drift_rate"] * ts], -1),
                      np.deg2rad(ins["yaw_deg"]), speed=ins["speed"])
     return paths, seq
+
+
+def unit_calibration(spec: dict):
+    """A per-unit calibration as the sensor's db.xml carries it: the
+    model's built-in table with seeded perturbations of the two terms the
+    simulator encodes (io/simulate.py: the rotational and the vertical
+    correction of each laser), normal with the spec's deviations."""
+    from veloslam_tpu_torch.decode import calibration
+    base = calibration.default_for(spec["model"])
+    rng = np.random.default_rng(spec["seed"])
+    n = base.n_lasers
+    return base._replace(
+        rot_correction_deg=base.rot_correction_deg
+        + rng.normal(0.0, spec["rot_sd_deg"], n),
+        vert_correction_deg=base.vert_correction_deg
+        + rng.normal(0.0, spec["vert_sd_deg"], n))
+
+
+def write_models_drive(drive: dict, out_dir: str) -> tuple:
+    """A drive of models_golden_seed3.npz written as write_pipeline_drive
+    writes it, for its sensor `drive["model"]`; with a per-unit
+    `drive["calibration"]` (unit_calibration's spec) the sequence is
+    simulated with that calibration, the port's to_xml writes it to
+    <out_dir>/db.xml, and the SlamConfig reads it from there.  Returns
+    (paths, the sequence, the drive's SlamConfig as a dict)."""
+    from veloslam_tpu_torch.decode import calibration
+    spec = drive.get("calibration")
+    calib = unit_calibration(spec) if spec else None
+    paths, seq = write_pipeline_drive(drive, drive["model"], out_dir, calib)
+    slam = json.loads(json.dumps(drive["slam"]))
+    if calib is not None:
+        paths["calibration"] = os.path.join(out_dir, "db.xml")
+        calibration.to_xml(calib, paths["calibration"])
+        slam["sensor"]["calibration_path"] = paths["calibration"]
+    return paths, seq, slam
 
 
 def run_pipeline(paths: dict, drive: dict, device, timers=None) -> tuple:
@@ -1344,18 +1442,7 @@ def phase_pipeline(device, smi: str, fullslam_launches: dict,
             _check_pipeline(pipe, res, seq, gold, name, launches,
                             fullslam_launches, device)
             walls.append(wall)
-            g = pipe.graph
-            outs.append({
-                **{k: res[k] for k in ("times_us", "positions", "quaternions",
-                                       "keyframe_positions",
-                                       "keyframe_times_us", "n_landmarks",
-                                       "n_landmark_obs", "map_patches")},
-                "closures": np.asarray(pipe.closures),
-                "landmarks": g.l_pos[:g.n_landmarks],
-                "obs_kept": g.o_ok[:g.n_obs],
-                "map_count": [float(pipe.map._materialize(
-                    k, create=False).count.sum()) for k in sorted(
-                        set(pipe.map._patches) | set(pipe.map._spilled))]})
+            outs.append(_pipeline_outputs(pipe, res))
         # Fixed-order sums in the stream, the finalize and the graph
         # solves: the runs repeat to the bit.
         _check_repeats("pipeline", outs)
@@ -1378,10 +1465,26 @@ def phase_pipeline(device, smi: str, fullslam_launches: dict,
     return launches
 
 
+def _pipeline_outputs(pipe, res) -> dict:
+    """A batched-pipeline run's outputs for the bit-for-bit comparison of
+    repeats: trajectory, keyframes, closures, landmarks, map counts."""
+    g = pipe.graph
+    return {**{k: res[k] for k in ("times_us", "positions", "quaternions",
+                                   "keyframe_positions", "keyframe_times_us",
+                                   "n_landmarks", "n_landmark_obs",
+                                   "map_patches")},
+            "closures": np.asarray(pipe.closures),
+            "landmarks": g.l_pos[:g.n_landmarks],
+            "obs_kept": g.o_ok[:g.n_obs],
+            "map_count": map_tiles(pipe)[1]}
+
+
 def _check_pipeline(pipe, res, seq, gold, name, launches, fullslam_launches,
-                    device) -> None:
+                    device, max_ate: float = 0.15) -> None:
     """One pipeline run against the JAX golden; its launches equal to
-    `fullslam_launches` unless that is None."""
+    `fullslam_launches` unless that is None; the 2-D ATE at most the
+    golden's + 0.02 m and at most `max_ate` (0.15 m: bench.py's HDL-32
+    drive, whose golden reads 0.07 m)."""
     from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
 
     def g(k):
@@ -1404,7 +1507,7 @@ def _check_pipeline(pipe, res, seq, gold, name, launches, fullslam_launches,
         raise AssertionError(f"pipeline {name}: closure pairs {closures} "
                              f"differ from the golden's "
                              f"{g('closures').tolist()}")
-    if len(closures) < 3:
+    if len(closures) < min(3, len(g("closures"))):
         raise AssertionError(f"pipeline {name}: {len(closures)} closures, "
                              f"want 3+")
     pos = res["positions"]
@@ -1434,7 +1537,7 @@ def _check_pipeline(pipe, res, seq, gold, name, launches, fullslam_launches,
     truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
                                   seq["ins_pos"])
     rmse = ate(pos[:, :2], truth[:, :2], align=False)["rmse"]
-    limit = min(float(g("ate")) + 0.02, 0.15)
+    limit = min(float(g("ate")) + 0.02, max_ate)
     if not rmse <= limit:
         raise AssertionError(f"pipeline {name}: ATE {rmse} m > {limit} m")
     if device.type == "cuda" and not all(launches[k] for k in REG_KERNELS):
@@ -1712,7 +1815,7 @@ CAPTURED = ("gn_iteration", "fused_normal_equations", "gather_i32",
 
 
 def check_captured(seen: dict, smi: str, where: str = "per_frame",
-                   want=CAPTURED) -> dict:
+                   want=CAPTURED, timed: bool = True) -> dict:
     """Each registration kernel against its plain version on the inputs a
     run gave it (capturing_kernel_inputs), at every shape of that run:
     the GN step and NE-only mode at _check_gn's and _check_ne's
@@ -1720,12 +1823,13 @@ def check_captured(seen: dict, smi: str, where: str = "per_frame",
     the first shape of each the kernel's time beside its plain version's:
     on the per-frame path a frame's registration against the ROI for the
     GN step and the gathers, closure verification for NE-only (its only
-    caller).  Every wrapper in `want` must have been captured.  Returns
-    the largest |Δ| of each kernel (H and b for the normal equations)."""
+    caller); without `timed`, no times.  Every wrapper in `want` must
+    have been captured.  Returns the largest |Δ| of each kernel (H and b
+    for the normal equations)."""
     from veloslam_tpu_torch.registration import gather as ga
     from veloslam_tpu_torch.registration import normal_equations as ne
     worst = dict.fromkeys(REG_KERNELS, 0.0)   # the gathers: bitwise
-    timed = set()
+    done = set()
     for (name, _, _), (args, kw) in seen.items():
         if name in ("gn_iteration", "fused_normal_equations"):
             F, P = args[0].shape[:2]
@@ -1757,8 +1861,8 @@ def check_captured(seen: dict, smi: str, where: str = "per_frame",
                                      "the plain version")
             line = (f"table {tuple(table.shape)} M {idx.numel()} "
                     f"({torch.unique(idx).numel()} distinct): bitwise equal")
-        if name not in timed:
-            timed.add(name)
+        if timed and name not in done:
+            done.add(name)
             ms = [_events_ms(lambda f=f: f(*args, **kw), TIMED_RUNS, 10)
                   for f in (kernel, plain)]
             line += (f"; kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms per "
@@ -1911,16 +2015,19 @@ def check_registrations(calls: list, where: str) -> str:
             f"matches within {dm:.2%}")
 
 
-def run_odometry(seq, track, device, model: str, batch: int, **flags):
+def run_odometry(seq, track, device, model: str, batch: int, calib=None,
+                 **flags):
     """One StreamingOdometry run over a whole drive (the engine built
-    with `flags`); returns (results, wall s, engine)."""
+    with `flags`, on `calib`, else the model's built-in table); returns
+    (results, wall s, engine)."""
     from veloslam_tpu_torch.decode import calibration
     from veloslam_tpu_torch.decode.decode import DeviceCalib
     from veloslam_tpu_torch.runtime.odometry import StreamingOdometry
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
     eng = StreamingOdometry(
-        DeviceCalib.from_host(calibration.default_for(model), device=device),
+        DeviceCalib.from_host(calib or calibration.default_for(model),
+                              device=device),
         model=model, **flags)
     sync()
     t0 = time.perf_counter()
@@ -2578,8 +2685,13 @@ def phase_apps(device, smi: str, name: str = "full") -> None:
         data = json.loads(re.search(r"const D = (\{.*?\});\n", html,
                                     re.S).group(1))
         rows = np.asarray([[p["x"], p["y"]] for p in data["traj"]])
-        if not (len(rows) == len(traj) > 0 and np.array_equal(
-                rows, np.round(traj[:, 1:3], 3))
+        # The HTML rounds each position to 3 decimals, trajectory.txt to
+        # 6: a position within 5e-7 of a half-millimetre rounds either
+        # way from the file's value, so each row is held to the
+        # millimetre grid within half a step (+ 5e-7) of the file's.
+        if not (len(rows) == len(traj) > 0
+                and np.abs(rows * 1e3 - np.round(rows * 1e3)).max() < 1e-6
+                and np.abs(rows - traj[:, 1:3]).max() <= 5e-4 + 5e-7 + 1e-9
                 and data["stats"]["frames"] == len(traj)):
             raise AssertionError(f"apps: the BEV HTML holds {len(rows)} "
                                  f"rows, the trajectory {len(traj)}")
@@ -3761,6 +3873,401 @@ def check_multihost_session(ranks: list, single: np.ndarray, tiles: list,
             f"{limit:.4f})")
 
 
+def models_drives(name: str = "full") -> tuple:
+    """models_golden_seed3.npz: (the golden, its config, {model: that
+    model's drive of size `name`})."""
+    gold = np.load(MODELS_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    return gold, cfg, {d["model"]: d for d in cfg["drives"]
+                       if d["name"] == f"{d['model']}_{name}"}
+
+
+def _time_ms(device, fn, runs: int) -> float:
+    """ms per call: CUDA events on the card, the host clock on the CPU."""
+    return (_events_ms(fn, runs) if device.type == "cuda"
+            else _host_ms(fn, runs))
+
+
+def _bulk_kernel_lines(seen: dict, smi: str, where: str) -> None:
+    """Each registration kernel on a bulk step's own inputs: device µs
+    (torch.profiler) beside its bound, the GN step at _ne_bound, the
+    gathers by _time_gather (with their plain version and index_select)."""
+    from veloslam_tpu_torch.registration import normal_equations as ne
+    for (name, _, _), (args, kw) in seen.items():
+        if name == "gn_iteration":
+            pts, pose, mu, n, hit = args
+            F, P = pts.shape[:2]
+            bound_ms, bound_by = _ne_bound(F, P, int(hit.sum()))
+            dev = _device_us(lambda: ne.gn_iteration(*args, **kw))
+            print(f"[models] {where} GN step F={F} P={P}, "
+                  f"{float(hit.float().mean()):.0%} hits: device "
+                  f"{dev:.2f} µs per call (profiler); bound "
+                  f"{bound_ms * 1e3:.2f} µs ({bound_by}), "
+                  f"{_share(bound_ms, dev)}; {smi}", flush=True)
+        elif name in ("gather_i32", "gather_rows8"):
+            table, idx = args
+            line = _time_gather(name, table, idx)["line"]
+            print(f"[models] {where} {name} table {tuple(table.shape)} M "
+                  f"{idx.numel()}: {line}; {smi}", flush=True)
+
+
+def _models_bulk(device, smi: str, model: str, calib, reg: dict) -> tuple:
+    """One model's bulk step at bench.py's width (MODELS_BULK_PACKETS
+    packets of that sensor, slots_for_batch slots, the production
+    registration config `reg`, a warm map): the frame-slot count the
+    kernels see equal to slots_for_batch, one step's launches exact, the
+    kernels held against their plain versions on that step's inputs and
+    their device µs beside the bound, then MODELS_BULK_STEPS timed steps.
+    Returns (one step's launches, check_captured's largest |Δ|)."""
+    from veloslam_tpu_torch.decode.decode import DeviceCalib
+    from veloslam_tpu_torch.runtime import odometry as odo
+    packets = MODELS_BULK_PACKETS
+    slots = odo.slots_for_batch(model, packets)
+    pkts, rel_s, track_rel, track_q, track_t, track_v = _bulk_inputs(
+        device, packets, model=model, calib=calib)
+    dcal = DeviceCalib.from_host(calib, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    kw = dict(model=model, n_beams=calib.n_lasers,
+              reg_points=reg["reg_points"],
+              reg_iterations=reg["reg_iterations"], max_frames_batch=slots,
+              reassociate_every=reg["reassociate_every"],
+              map_decay=reg["map_decay"], use_dense=True,
+              sample_assembly=True)
+
+    def step(state):
+        return odo.odometry_step_batched(
+            state, pkts, dcal, rel_s, zero, zero, track_rel, track_q,
+            track_t, track_v, **kw)[0]
+
+    fresh = odo.init_state(calib.n_lasers, device=device,
+                           map_capacity=reg["map_capacity"],
+                           voxel_size=reg["voxel_size"],
+                           sample_assembly=True)
+    warm = step(fresh)                          # fills the map
+    _reset_launches()
+    with capturing_kernel_inputs({}, latest=True) as seen:
+        after = step(warm)
+    launches = _launches()
+    blocks = -(-reg["reg_iterations"] // reg["reassociate_every"])
+    _check_launches(f"models bulk {model}", launches, {
+        "fused_normal_equations": reg["reg_iterations"],
+        "gather_i32": blocks, "gather_rows8": blocks}, device)
+    shapes = {key[1][0][:2] for key in seen if key[0] == "gn_iteration"}
+    if shapes != {(slots, reg["reg_points"])}:
+        raise AssertionError(f"models bulk {model}: the GN step saw "
+                             f"{shapes}, want ({slots}, "
+                             f"{reg['reg_points']}) slots x points")
+    n_done = int(after.n_frames) - int(warm.n_frames)
+    if not (0 < n_done <= slots and torch.isfinite(after.traj_t).all()
+            and torch.isfinite(after.map_grid.mean).all()):
+        raise AssertionError(f"models bulk {model}: {n_done} frames done "
+                             f"of {slots} slots, or a non-finite result")
+    errs = dict.fromkeys(REG_KERNELS)            # not compared on the CPU
+    if device.type == "cuda":
+        errs = check_captured(seen, smi, f"models bulk {model}",
+                              want=("gn_iteration", "gather_i32",
+                                    "gather_rows8"))
+        _bulk_kernel_lines(seen, smi, f"bulk {model}")
+    del seen
+    ms = _time_ms(device, lambda: step(warm), MODELS_BULK_STEPS)
+    print(f"[models] bulk {model}: {packets} packets "
+          f"({packets / odo.packets_per_second(model):.3f} s of the sensor), "
+          f"{slots} frame slots = slots_for_batch, {n_done} frames a "
+          f"batch: {ms:.3f} ms a batch, {n_done / (ms * 1e-3):.1f} "
+          f"frames/s (median of {MODELS_BULK_STEPS} steps from a warm "
+          f"map); launches a batch {launches}; {smi}", flush=True)
+    return launches, errs
+
+
+def _worst(worst: dict, errs: dict) -> None:
+    for k, v in errs.items():
+        if v is not None:
+            worst[k] = max(worst[k] or 0.0, v)
+
+
+def _models_fullslam(device, smi, gold, drive, seq, calib, key) -> tuple:
+    """FullSlam.run_device + finalize_device on the drive against the
+    golden's "<key>" record, MODELS_RUNS runs equal to the bit.  Returns
+    (one run's launches, check_captured's largest |Δ|)."""
+    from veloslam_tpu_torch.decode.decode import DeviceCalib
+    from veloslam_tpu_torch.io import simulate as sim
+    from veloslam_tpu_torch.runtime.fullslam import FullSlam
+    track = sim.truth_track(seq, drift_rate=drive["drift_rate"])
+    hosts, errs = [], dict.fromkeys(REG_KERNELS)
+    for k in range(MODELS_RUNS):
+        eng = FullSlam(DeviceCalib.from_host(calib, device=device),
+                       model=drive["model"], use_dense=True,
+                       **drive["engine"])
+        _reset_launches()
+        with capturing_kernel_inputs({}) as seen:
+            host, stream_s, fin_s = run_fullslam(seq, track, eng, drive,
+                                                 drive["budget_floor"])
+        launches = _launches()
+        _check_fullslam(host, eng, seq, drive, gold, launches, device, key)
+        if k == 0 and device.type == "cuda":
+            errs = check_captured(seen, smi, f"models {key}", timed=False)
+        del seen
+        hosts.append(host)
+    _check_repeats(f"models {key}", hosts)
+    n = int(hosts[0]["n_frames"])
+    print(f"[models] {key}: the {MODELS_RUNS} runs equal to the bit; "
+          f"stream {stream_s:.3f} s + finalize {fin_s:.3f} s: "
+          f"{n / (stream_s + fin_s):.1f} frames/s ({n / stream_s:.1f} "
+          f"stream only; the last run); launches per run {launches}; "
+          f"{smi}", flush=True)
+    return launches, errs
+
+
+def _models_pipeline(device, smi, gold, drive, paths, seq, key,
+                     fullslam_launches) -> tuple:
+    """run_offline_batched + finalize() against the golden's "<key>"
+    record with phase pipeline's gates, MODELS_RUNS runs equal to the bit;
+    launches equal to the same engine's FullSlam run's.  Returns (one
+    run's launches, check_captured's largest |Δ|)."""
+    outs, errs = [], dict.fromkeys(REG_KERNELS)
+    for k in range(MODELS_RUNS):
+        _reset_launches()
+        with capturing_kernel_inputs({}) as seen:
+            pipe, res, wall = run_pipeline(paths, drive, device)
+        launches = _launches()
+        # The ATE at most the golden's + 0.02 m, without the HDL-32
+        # drive's 0.15 m cap: the VLP-16's own golden reads 0.169 m.
+        _check_pipeline(pipe, res, seq, gold, key, launches,
+                        fullslam_launches, device, max_ate=np.inf)
+        if k == 0 and device.type == "cuda":
+            errs = check_captured(seen, smi, f"models {key}", timed=False)
+        del seen
+        outs.append(_pipeline_outputs(pipe, res))
+    _check_repeats(f"models {key}", outs)
+    n = res["n_frames"]
+    print(f"[models] {key}: the {MODELS_RUNS} runs equal to the bit; "
+          f"{n} frames in {wall:.3f} s: {n / wall:.1f} frames/s "
+          f"(run_offline_batched + finalize, pcap read included; the last "
+          f"run); launches per run {launches}; {smi}", flush=True)
+    return launches, errs
+
+
+def _models_per_frame(device, smi, gold, drive, paths, seq, key) -> tuple:
+    """run_offline + finalize() (slam_run's default mode) against the
+    golden's "<key>" record with phase per_frame's gates (its closures,
+    as many as the golden accepts), MODELS_RUNS runs equal to the bit.
+    Returns (one run's launches, check_captured's largest |Δ|)."""
+    outs, errs = [], dict.fromkeys(REG_KERNELS)
+    want = len(gold[f"{key}_closures"])
+    for k in range(MODELS_RUNS):
+        _reset_launches()
+        with capturing_kernel_inputs({}) as seen:
+            pipe, res, mid, wall = run_perframe(paths, drive, device)
+        launches = _launches()
+        summary = check_perframe(pipe, res, mid, seq, gold, key,
+                                 min_closures=want)
+        _live_gate(f"models {key}", launches, device)
+        if k == 0 and device.type == "cuda":
+            errs = check_captured(seen, smi, f"models {key}", timed=False,
+                                  want=CAPTURED if want else
+                                  ("gn_iteration", "gather_i32",
+                                   "gather_rows8"))
+        del seen
+        outs.append(_perframe_outputs(pipe, res))
+    _check_repeats(f"models {key}", outs)
+    n = res["n_frames"]
+    print(f"[models] {key}: {summary}; the {MODELS_RUNS} runs equal to "
+          f"the bit; {n} frames in {wall:.3f} s: {n / wall:.2f} frames/s "
+          f"(run_offline + finalize, pcap read included; the last run); "
+          f"launches per run {launches}; {smi}", flush=True)
+    return launches, errs
+
+
+def _models_fast(device, smi, gold, drive, paths, key) -> tuple:
+    """`slam_run --model M [--calibration db.xml] --fast` (the port's
+    CLI) on the drive's pcap + INS log against the JAX app's
+    trajectory.txt in the golden: times exact, positions within 1 cm;
+    MODELS_RUNS runs equal; the three kernels launched equally often, a
+    whole number of GN iterations.  Returns (one run's launches,
+    check_captured's largest |Δ|)."""
+    import io
+    import tempfile
+
+    from veloslam_tpu_torch.apps import slam_run
+    args = ["--pcap", paths["pcap"], "--ins", paths["ins"], "--model",
+            drive["model"], "--fast", "--batch", str(drive["fast_batch"]),
+            "--device", device.type]
+    if "calibration" in paths:
+        args += ["--calibration", paths["calibration"]]
+    want = gold[f"{key}_trajectory"]
+    runs, errs = [], dict.fromkeys(REG_KERNELS)
+    for k in range(MODELS_RUNS):
+        with tempfile.TemporaryDirectory() as out:
+            _reset_launches()
+            with capturing_kernel_inputs({}, latest=True) as seen, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                rc = slam_run.main([*args, "--out-dir", out])
+            launches = _launches()
+            got = np.loadtxt(os.path.join(out, "trajectory.txt"), ndmin=2)
+            with open(os.path.join(out, "metrics.json")) as f:
+                metrics = json.load(f)
+        off = (float(np.abs(got[:, 1:4] - want[:, 1:4]).max())
+               if got.shape == want.shape else float("inf"))
+        if not (rc == 0 and got.shape == want.shape
+                and np.array_equal(got[:, 0], want[:, 0]) and off <= 0.01):
+            raise AssertionError(f"models {key}: slam_run --fast rc {rc}, "
+                                 f"{len(got)} frames (golden {len(want)}), "
+                                 f"{off} m from the JAX app's trajectory")
+        # One GN step, association and lookup per iteration of the
+        # engine's 8 (StreamingOdometry's default) in every batch.
+        counts = {launches[k] for k in REG_KERNELS}
+        if device.type == "cuda" and not (
+                len(counts) == 1 and min(counts) > 0
+                and min(counts) % 8 == 0
+                and launches["chain_factor"] == launches["chain_solve"] == 0):
+            raise AssertionError(f"models {key}: launches {launches}")
+        if k == 0 and device.type == "cuda":
+            errs = check_captured(seen, smi, f"models {key}", timed=False,
+                                  want=("gn_iteration", "gather_i32",
+                                        "gather_rows8"))
+        del seen
+        runs.append(got)
+    if not np.array_equal(runs[0], runs[-1]):
+        raise AssertionError(f"models {key}: the runs' trajectories differ")
+    print(f"[models] {key}: slam_run --fast, {len(got)} frames, times "
+          f"equal to the JAX app's, positions max {off:.2e} m from it; the "
+          f"{MODELS_RUNS} runs equal; {metrics['timing']} (the last run); "
+          f"launches per run {launches}; {smi}", flush=True)
+    return launches, errs
+
+
+def _models_live(device, smi, gold, cfg, drive, paths, seq, slam,
+                 key) -> tuple:
+    """The drive as a live session (HDL-64): the golden's datagrams
+    through ScriptedUdp, per frame and fast, each + finalize(), against
+    the golden's "<key>_live_<mode>" records with phase live's gates;
+    then measure_live_loopback at 1x the sensor's rate (INS interleaved
+    at 100 Hz), fast (none lost or dropped, every INS datagram received,
+    run_online's 2-D ATE within the golden session's + 0.02 m) and per
+    frame (its keep-up shown: lost, feed time, lag).  Returns ({part:
+    launches}, check_captured's largest |Δ|)."""
+    from veloslam_tpu_torch.apps import replay
+    from veloslam_tpu_torch.config import SlamConfig
+    from veloslam_tpu_torch.io import udp
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    origin = tuple(cfg["origin"])
+    config = SlamConfig.from_dict(slam)
+    launches, worst = {}, dict.fromkeys(REG_KERNELS)
+    ins = ins_payloads(replay.replay_ins_txt, udp, paths["ins"], origin)
+    if ins != [r.tobytes() for r in gold[f"{key}_live_ins_payloads"]]:
+        raise AssertionError(f"models {key}: replay_ins_txt's InsPVA "
+                             "payloads differ from the JAX package's")
+    streams = live_streams(dict(drive, ins=True, position=False), paths,
+                           ins)
+    for mode in drive["live_modes"]:
+        lkey = f"{key}_live_{mode}"
+        pipe = SlamPipeline(config, device=device)
+        _reset_launches()
+        with capturing_kernel_inputs({}, latest=True) as seen:
+            live, mid, res = run_live_scripted(pipe, udp, streams,
+                                               mode == "fast", origin)
+        got = launches[f"live_scripted_{mode}"] = _launches()
+        stream_off = check_live_stream(f"models {lkey}", live, gold, lkey)
+        summary = check_perframe(pipe, res, mid, seq, gold, lkey,
+                                 min_closures=len(gold[f"{lkey}_closures"]))
+        check_live_counts(f"models {lkey}", live_counts(pipe, live, res),
+                          json.loads(str(gold[f"{lkey}_live"])))
+        _live_gate(f"models {lkey}", got, device)
+        if device.type == "cuda":
+            _worst(worst, check_captured(
+                seen, smi, f"models {lkey}", timed=False,
+                want=CAPTURED if mode == "per_frame"
+                else ("gn_iteration", "gather_i32")))
+        del seen
+        print(f"[models] {lkey} scripted: run_online's trajectory "
+              f"{stream_off:.2e} m from the golden's before finalize; after "
+              f"it {summary}; health and counts equal to the golden's; "
+              f"launches {got}; {smi}", flush=True)
+    for mode in ("fast", "per_frame"):
+        lkey = f"{key}_live_{mode}"
+        _reset_launches()
+        r = replay.measure_live_loopback(
+            rate=1.0, fast=mode == "fast", warm=False, origin=origin,
+            device=device, pcap=paths["pcap"], ins=paths["ins"],
+            config=config)
+        got = launches[f"live_loopback_{mode}_1x"] = _launches()
+        times, pos = r.pop("times_us"), r.pop("positions")
+        rmse = stream_ate(times, pos, seq) if len(times) else float("inf")
+        limit = stream_ate(gold[f"{lkey}_stream_times_us"],
+                           gold[f"{lkey}_stream_positions"], seq) + 0.02
+        if not (len(times) and np.isfinite(pos).all()):
+            raise AssertionError(f"models {lkey} loopback 1x: {r}")
+        if mode == "fast" and not (
+                r["lost"] == 0 and r["receiver_dropped"] == 0
+                and r["received_ins"] == r["sent_ins"]
+                and r["n_frames"] >= int(gold[f"{lkey}_n_frames"]) - 1
+                and rmse <= limit):
+            raise AssertionError(f"models {lkey} loopback 1x: {r}; 2-D ATE "
+                                 f"{rmse} m (limit {limit} m)")
+        _live_gate(f"models {lkey} loopback", got, device)
+        keeps = (r["lost"] == 0 and r["receiver_dropped"] == 0
+                 and r["batch_feed_ms_mean"] < r["batch_period_ms"])
+        print(f"[models] {lkey} loopback, INS interleaved at 100 Hz, 1x "
+              f"the sensor: {r}; keeps up: {keeps} (feed mean "
+              f"{r['batch_feed_ms_mean']} ms against the "
+              f"{r['batch_period_ms']} ms batch period, {r['lost']} lost, "
+              f"{r['lag_s']} s behind the last packet); run_online's 2-D "
+              f"ATE {rmse:.4f} m (the golden session's + 0.02: "
+              f"{limit:.4f}); launches {got}; {smi}", flush=True)
+    return launches, worst
+
+
+def phase_models(device, smi: str, reg: dict, name: str = "full") -> tuple:
+    """The HDL-64 (with its per-unit calibration file) and the VLP-16
+    through every single-card entry point, against the JAX golden
+    (models_golden_seed3.npz; `name="small"`: its CPU drives, for a
+    rehearsal): per model the bulk step at bench.py's width, FullSlam +
+    finalize_device, run_offline_batched + finalize(), run_offline +
+    finalize(), slam_run --fast; the HDL-64 also live.  `reg`: the
+    production registration config of the bulk step.  Returns ({part:
+    launches}, the largest |Δ| per kernel over every captured input)."""
+    import tempfile
+
+    from veloslam_tpu_torch.decode import calibration
+    gold, cfg, drives = models_drives(name)
+    launches, worst = {}, dict.fromkeys(REG_KERNELS)
+    t0 = time.perf_counter()
+    for model, drive in drives.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            paths, seq, slam = write_models_drive(drive, tmp)
+            calib = (calibration.from_xml(paths["calibration"])
+                     if "calibration" in paths
+                     else calibration.default_for(model))
+            print(f"[models] {drive['name']}: {len(seq['packets'])} "
+                  f"{model} packets ({drive['duration_s']} s), calibration "
+                  f"{paths.get('calibration', 'built in')}", flush=True)
+            drive, key = dict(drive, slam=slam), drive["name"]
+
+            def part(label, result):
+                launches[f"{model}_{label}"], errs = result
+                _worst(worst, errs)
+                return launches[f"{model}_{label}"]
+
+            if name == "full":
+                part("bulk", _models_bulk(device, smi, model, calib, reg))
+            fs = part("fullslam", _models_fullslam(
+                device, smi, gold, drive, seq, calib, f"{key}_fullslam"))
+            part("batched", _models_pipeline(
+                device, smi, gold, drive, paths, seq, f"{key}_batched", fs))
+            part("per_frame", _models_per_frame(
+                device, smi, gold, drive, paths, seq, f"{key}_per_frame"))
+            part("fast", _models_fast(device, smi, gold, drive, paths,
+                                      f"{key}_fast"))
+            if drive["live_modes"]:
+                got, errs = _models_live(device, smi, gold, cfg, drive,
+                                         paths, seq, slam, key)
+                launches.update({f"{model}_{k}": v for k, v in got.items()})
+                _worst(worst, errs)
+    print(f"[models] phase {time.perf_counter() - t0:.1f} s; {smi}",
+          flush=True)
+    return launches, worst
+
+
 def main() -> int:
     smi = phase_device()
     device = torch.device("cuda", 0)
@@ -3782,6 +4289,7 @@ def main() -> int:
     phase_pcg(device, smi)
     long_launches = phase_long_drive(device, smi)
     multichip_launches, multichip_errs = phase_multichip(device, smi)
+    models_launches, models_errs = phase_models(device, smi, cfg["odometry"])
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "veloslam_tpu"))
     if loaded:
@@ -3797,7 +4305,10 @@ def main() -> int:
                 "live_max_abs_err": live_errs[name],
                 "multichip_launches": {part: got[name] for part, got in
                                        multichip_launches.items()},
-                "multichip_max_abs_err": multichip_errs[name]}
+                "multichip_max_abs_err": multichip_errs[name],
+                "models_launches": {part: got[name] for part, got in
+                                    models_launches.items()},
+                "models_max_abs_err": models_errs[name]}
 
     kernels = [
         {"name": "fused_normal_equations", "route": "cuda",
@@ -3835,6 +4346,9 @@ def main() -> int:
                                 + got["chain_solve"]
                                 for part, got in multichip_launches.items()},
          "multichip_max_abs_err": None,  # not launched: dense solves
+         "models_launches": {part: got["chain_factor"] + got["chain_solve"]
+                             for part, got in models_launches.items()},
+         "models_max_abs_err": None,     # not launched: dense solves
          **chain_record},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -87,17 +87,61 @@ def golden_config() -> dict:
     }
 
 
+def ins_track(seq, drift_rate: float):
+    """The drive's INS PoseTrack (the JAX package's), its positions
+    drifting `drift_rate` m/s in +y, as the port's io.simulate.truth_track
+    builds it."""
+    from veloslam_tpu.core import se3
+    from veloslam_tpu.core.timeline import PoseTrack
+    track = PoseTrack()
+    t0 = seq["ins_t_us"][0]
+    for t_us, p, yaw, v in zip(seq["ins_t_us"], seq["ins_pos"],
+                               seq["ins_yaw"], seq["ins_vel"]):
+        dp = np.array([0.0, drift_rate * (t_us - t0) * 1e-6, 0.0])
+        track.add(int(t_us), q=se3.euler_deg_to_quat_np(
+            0.0, 0.0, np.rad2deg(yaw)), t=np.asarray(p) + dp, v=v)
+    return track
+
+
+def record(eng, dev: dict, seq, drive: dict, budget: int) -> dict:
+    """A JAX FullSlam run's results as the golden keeps them: frames and
+    times, keyframes, candidate and accepted pairs, closure measurements,
+    solved and corrected poses, the stream's trajectory, 2-D ATE."""
+    from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
+    host = {k: np.asarray(v) for k, v in dev.items()
+            if not isinstance(v, tuple)}
+    n = int(host["n_frames"])
+    times_us = (host["traj_time"][:n].astype(np.float64) * 1e6
+                + eng._stream_t0_us).astype(np.int64)
+    truth = interpolate_positions(times_us, seq["ins_t_us"], seq["ins_pos"])
+    t_rel = (times_us - seq["ins_t_us"][0]) * 1e-6
+    return {
+        "n_frames": n, "times_us": times_us,
+        "kf_n": int(host["kf_n"]), "max_candidates": budget,
+        "cand_i": host["cand_i"], "cand_j": host["cand_j"],
+        "cand_valid": host["cand_valid"], "accept": host["accept"],
+        "meas_q": host["meas_q"], "meas_t": host["meas_t"],
+        "solved_t": host["solved_t"][:int(host["kf_n"])],
+        "positions": host["traj_t"][:n],
+        "quaternions": host["traj_q"][:n],
+        "odometry_positions": np.asarray(eng.state.traj_t)[:n],
+        # 2-D ATE against the simulator's truth, as bench.py scores the
+        # full-SLAM stage; raw INS = the drift alone.
+        "ate": ate(host["traj_t"][:n, :2], truth[:, :2],
+                   align=False)["rmse"],
+        "ate_raw_ins": float(np.sqrt(np.mean(
+            (drive["drift_rate"] * t_rel) ** 2))),
+    }
+
+
 def main():
     sys.path.insert(0, REPO)
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from veloslam_tpu.core import se3
-    from veloslam_tpu.core.timeline import PoseTrack
     from veloslam_tpu.decode import calibration
     from veloslam_tpu.decode.decode import DeviceCalib
     from veloslam_tpu.io import simulate as sim
-    from veloslam_tpu.runtime.evaluate import ate, interpolate_positions
     from veloslam_tpu.runtime.fullslam import FullSlam
     from veloslam_tpu.runtime.pipeline import SlamPipeline
 
@@ -109,14 +153,7 @@ def main():
             duration_s=drive["duration_s"], model=cfg["model"],
             seed=drive["seed"], world=sim.World.demo(**drive["world"]),
             trajectory=sim.circle_trajectory(**drive["circle"]))
-        track = PoseTrack()
-        t0 = seq["ins_t_us"][0]
-        for t_us, p, yaw, v in zip(seq["ins_t_us"], seq["ins_pos"],
-                                   seq["ins_yaw"], seq["ins_vel"]):
-            dp = np.array([0.0, drive["drift_rate"] * (t_us - t0) * 1e-6,
-                           0.0])
-            track.add(int(t_us), q=se3.euler_deg_to_quat_np(
-                0.0, 0.0, np.rad2deg(yaw)), t=np.asarray(p) + dp, v=v)
+        track = ins_track(seq, drive["drift_rate"])
         eng = FullSlam(DeviceCalib.from_host(calibration.hdl32()),
                        model=cfg["model"], use_dense=True,
                        **drive["engine"])
@@ -125,36 +162,12 @@ def main():
         budget = drive["max_candidates"] or SlamPipeline._sweep_budget(
             eng, cfg["budget_floor"])
         dev = eng.finalize_device(max_candidates=budget, **drive["finalize"])
-        host = {k: np.asarray(v) for k, v in dev.items()
-                if not isinstance(v, tuple)}
-        n = int(host["n_frames"])
-        times_us = (host["traj_time"][:n].astype(np.float64) * 1e6
-                    + eng._stream_t0_us).astype(np.int64)
-        truth = interpolate_positions(times_us, seq["ins_t_us"],
-                                      seq["ins_pos"])
-        t_rel = (times_us - seq["ins_t_us"][0]) * 1e-6
-        res = {
-            "n_frames": n, "times_us": times_us,
-            "kf_n": int(host["kf_n"]), "max_candidates": budget,
-            "cand_i": host["cand_i"], "cand_j": host["cand_j"],
-            "cand_valid": host["cand_valid"], "accept": host["accept"],
-            "meas_q": host["meas_q"], "meas_t": host["meas_t"],
-            "solved_t": host["solved_t"][:int(host["kf_n"])],
-            "positions": host["traj_t"][:n],
-            "quaternions": host["traj_q"][:n],
-            "odometry_positions": np.asarray(eng.state.traj_t)[:n],
-            # 2-D ATE against the simulator's truth, as bench.py scores
-            # the full-SLAM stage; raw INS = the drift alone.
-            "ate": ate(host["traj_t"][:n, :2], truth[:, :2],
-                       align=False)["rmse"],
-            "ate_raw_ins": float(np.sqrt(np.mean(
-                (drive["drift_rate"] * t_rel) ** 2))),
-        }
+        res = record(eng, dev, seq, drive, budget)
         for k, v in res.items():
             out[f"{name}_{k}"] = v
-        print(f"{name}: {n} frames, {res['kf_n']} keyframes, "
-              f"{int(host['cand_valid'].sum())} candidates of {budget}, "
-              f"{int(host['accept'].sum())} accepted; ATE {res['ate']:.4f} m "
+        print(f"{name}: {res['n_frames']} frames, {res['kf_n']} keyframes, "
+              f"{int(res['cand_valid'].sum())} candidates of {budget}, "
+              f"{int(res['accept'].sum())} accepted; ATE {res['ate']:.4f} m "
               f"(raw INS {res['ate_raw_ins']:.3f} m)", flush=True)
     np.savez(OUT, **out)
     print(f"wrote {OUT}")

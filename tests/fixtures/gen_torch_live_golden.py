@@ -97,20 +97,12 @@ def golden_config() -> dict:
     ]}
 
 
-def main():
-    sys.path.insert(0, REPO)
-    sys.path.insert(0, HERE)
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-
+def measure_margins() -> list:
+    """Wrap the JAX package's associate_and_add so that each call appends
+    chip_smoke.assoc_margin of its clustering decisions to the returned
+    list (the caller clears it between runs)."""
     import chip_smoke as cs
-    from gen_torch_perframe_golden import record
-    from gen_torch_pipeline_golden import jax_slam_config
-    from veloslam_tpu.apps.replay import replay_ins_txt
     from veloslam_tpu.graph import landmark_assoc
-    from veloslam_tpu.io import udp
-    from veloslam_tpu.runtime.pipeline import SlamPipeline
-
     margins = []
     associate = landmark_assoc.associate_and_add
 
@@ -120,7 +112,39 @@ def main():
         return associate(graph, posts, radius=radius, **kw)
 
     landmark_assoc.associate_and_add = measured
+    return margins
 
+
+def record_session(pipe, udp, streams: dict, mode: str, seq, drive: dict,
+                   origin, margins: list) -> tuple:
+    """One scripted session of the JAX pipeline `pipe` (run_online over
+    chip_smoke.ScriptedUdp + finalize): (its record, the closures
+    accepted before finalize, the live counts)."""
+    import chip_smoke as cs
+    from gen_torch_perframe_golden import record
+    margins.clear()
+    live, mid, res = cs.run_live_scripted(pipe, udp, streams,
+                                          mode == "fast", origin)
+    r = record(pipe, res, mid, seq, drive)
+    r["stream_times_us"] = live["times_us"]
+    r["stream_positions"] = live["positions"]
+    r["assoc_margin"] = min(margins, default=np.inf)
+    return r, mid, cs.live_counts(pipe, live, res)
+
+
+def main():
+    sys.path.insert(0, REPO)
+    sys.path.insert(0, HERE)
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+
+    import chip_smoke as cs
+    from gen_torch_pipeline_golden import jax_slam_config
+    from veloslam_tpu.apps.replay import replay_ins_txt
+    from veloslam_tpu.io import udp
+    from veloslam_tpu.runtime.pipeline import SlamPipeline
+
+    margins = measure_margins()
     cfg = golden_config()
     out = {"config": json.dumps(cfg)}
     for drive in cfg["drives"]:
@@ -134,14 +158,8 @@ def main():
             b"".join(ins), np.uint8).reshape(len(ins), 104)
         for mode in drive["modes"]:
             pipe = SlamPipeline(jax_slam_config(drive["slam"]))
-            margins.clear()
-            live, mid, res = cs.run_live_scripted(
-                pipe, udp, streams, mode == "fast", ORIGIN)
-            r = record(pipe, res, mid, seq, drive)
-            r["stream_times_us"] = live["times_us"]
-            r["stream_positions"] = live["positions"]
-            r["assoc_margin"] = min(margins, default=np.inf)
-            counts = cs.live_counts(pipe, live, res)
+            r, mid, counts = record_session(pipe, udp, streams, mode, seq,
+                                            drive, ORIGIN, margins)
             for k, v in r.items():
                 out[f"{name}_{mode}_{k}"] = v
             out[f"{name}_{mode}_live"] = json.dumps(counts)

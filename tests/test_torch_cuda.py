@@ -1,5 +1,7 @@
 """The port on a CUDA card: the hand-written normal-equations, gather and
-chain kernels against their plain versions, the wrappers' input checks,
+chain kernels against their plain versions (at the bulk step's slot
+counts of the HDL-32, HDL-64 and VLP-16 among other shapes, and on the
+HDL-64's and VLP-16's own bulk-step inputs), the wrappers' input checks,
 the odometry slice (batched, fused and chained), frame assembly, the
 dense nearest-mean lookup and the shared-target binary search, D2D and
 NDT registration, the per-frame pipeline and the graph solves (dense and
@@ -39,10 +41,13 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("F,P", [(96, 16384), (3, 1000), (1, 1), (5, 0)])
+@pytest.mark.parametrize("F,P", [(96, 16384), (50, 16384), (222, 16384),
+                                 (3, 1000), (1, 1), (5, 0)])
 def test_kernel_matches_plain_on_card(card, F, P):
-    """|Δ| ≤ 1e-4·max|ref| + 1e-3 on H and b, 1e-4 relative on the sums,
-    n_hit exact, two launches bitwise equal; LAUNCHES counts each."""
+    """Against the plain version evaluated in float64 on the same inputs
+    (the kernel's arithmetic is float64): |Δ| ≤ 1e-4·max|ref| + 1e-3 on H
+    and b, 1e-4 relative on the sums, n_hit exact, two launches bitwise
+    equal; LAUNCHES counts each."""
     args = [a.to(card) for a in
             port_args(*normal_equation_slots(F, P, seed=F + P))]
     before = ne.LAUNCHES
@@ -50,14 +55,15 @@ def test_kernel_matches_plain_on_card(card, F, P):
     again = ne.fused_normal_equations(*args)
     torch.cuda.synchronize()
     assert ne.LAUNCHES == before + 2
-    ref = ne.normal_equations_plain(*args)
+    ref = ne.normal_equations_plain(
+        *(a.double() if a.is_floating_point() else a for a in args))
     for a, b in zip(got, again):
         assert torch.equal(a, b)
     for x, r in zip(got[:2], ref[:2]):
         lim = 1e-4 * (r.abs().max().item() if r.numel() else 0) + 1e-3
         assert (x - r).abs().max().item() <= lim
     for x, r in zip(got[2:4], ref[2:4]):
-        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(x, r.float(), rtol=1e-4, atol=1e-6)
     assert torch.equal(got[4], ref[4])
 
 
@@ -68,16 +74,18 @@ def _nan_equal_close(x, r, lim):
     assert ((x - r).abs()[~nan] <= lim).all()
 
 
-@pytest.mark.parametrize("F,P", [(96, 16384), (128, 8192), (3, 1000),
-                                 (3, 1001), (1, 1), (5, 0)])
+@pytest.mark.parametrize("F,P", [(96, 16384), (50, 16384), (222, 16384),
+                                 (128, 8192), (3, 1000), (3, 1001), (1, 1),
+                                 (5, 0)])
 def test_gn_iteration_matches_plain_on_card(card, F, P):
-    """The fused step against gn_iteration_plain (P = 1001 and 1 take the
-    kernel's scalar-load instance), with the edge slots of
-    with_edge_slots (rejected for few hits, clamped, NaN): decisions and
-    n_hit exact; H, b at the NE tolerance with NaNs equal; the pose within
-    1e-5 m / 1e-6 of the plain step on the kernel's own H, b (the same
-    float32 6×6 system, another Cholesky); a rejected pose unchanged; two
-    calls bitwise equal, one launch counted each."""
+    """The fused step against gn_iteration_plain evaluated in float64 on
+    the same inputs (P = 1001 and 1 take the kernel's scalar-load
+    instance), with the edge slots of with_edge_slots (rejected for few
+    hits, clamped, NaN): decisions and n_hit exact; H, b at the NE
+    tolerance with NaNs equal; the pose within 1e-5 m / 1e-6 of the plain
+    float64 step on the kernel's own H, b (the same 6×6 system); a
+    rejected pose unchanged; two calls bitwise equal, one launch counted
+    each."""
     slots = normal_equation_slots(F, P, seed=F + P)
     if F >= 3 and P:
         slots = with_edge_slots(*slots)
@@ -88,8 +96,11 @@ def test_gn_iteration_matches_plain_on_card(card, F, P):
     again = ne.gn_iteration(pts, pose, mu, n, hit)
     torch.cuda.synchronize()
     assert ne.LAUNCHES == before + 2
-    ref = ne.gn_iteration_plain(pts, pose, mu, n, hit)
-    own = ne._gn_step(pose, got.H, got.b, got.n_hit, 1e-6)
+    pose64 = se3.Pose(q.double(), t.double())
+    ref = ne.gn_iteration_plain(pts.double(), pose64, mu.double(),
+                                n.double(), hit)
+    own = ne._gn_step(pose64, got.H.double(), got.b.double(), got.n_hit,
+                      1e-6)
     for a, b in zip((*got.pose, *got[1:]), (*again.pose, *again[1:])):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
@@ -151,6 +162,8 @@ def test_odometry_on_card_matches_cpu(card):
     ("gather_i32", 1 << 21, 1), ("gather_i32", 1 << 21, 1000),
     ("gather_i32", 65536, 4097), ("gather_i32", 7, 0),
     ("gather_i32", 1 << 21, 1572867),
+    ("gather_i32", 1 << 21, 50 * 16384), ("gather_i32", 1 << 21, 222 * 16384),
+    ("gather_rows8", 65536, 50 * 16384), ("gather_rows8", 65536, 222 * 16384),
     ("gather_rows8", 32768, 1), ("gather_rows8", 32768, 1000),
     ("gather_rows8", 1000, 4097), ("gather_rows8", 3, 0)])
 def test_gather_kernels_match_plain_on_card(card, name, N, M):
@@ -172,6 +185,26 @@ def test_gather_kernels_match_plain_on_card(card, name, N, M):
     ref = getattr(ga, f"{name}_plain")(table, idx)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("model,slots", [("hdl64", 50), ("vlp16", 222)])
+def test_bulk_step_at_a_sensor_familys_width_on_card(card, model, slots):
+    """One warm odometry_step_batched at bench.py's width for the model
+    (16384 of its packets, the production registration config): the
+    batch has slots_for_batch frame slots, the GN step sees (slots,
+    16384), one step launches 16 GN steps and 2 of each gather, and each
+    kernel equals its plain version on that step's own inputs
+    (chip_smoke.check_captured: the NE tolerances, gathers bitwise)."""
+    import json
+
+    import chip_smoke as cs
+    assert odo.slots_for_batch(model, cs.MODELS_BULK_PACKETS) == slots
+    reg = json.loads(str(np.load(cs.GOLDEN)["config"]))["odometry"]
+    launches, errs = cs._models_bulk(card, "card test", model,
+                                     cal.default_for(model), reg)
+    assert launches["fused_normal_equations"] == reg["reg_iterations"]
+    assert launches["gather_i32"] == launches["gather_rows8"] == 2
+    assert all(v is not None for v in errs.values())
 
 
 def test_gather_wrappers_check_inputs_on_card(card):

@@ -124,6 +124,22 @@ def test_propose_closures_matches_jax(small):
     np.testing.assert_allclose(n(got.prior_t), n(want.prior_t), atol=1e-5)
 
 
+def test_descriptor_scores_match_jax(small):
+    """FullSlam.descriptor_scores over the drive's keyframe ring against
+    the JAX scancontext.descriptor_scores of the same descriptors (what
+    the JAX FullSlam.descriptor_scores returns): (K, K) scores within
+    1e-5, shifts equal."""
+    from veloslam_tpu.graph import scancontext as jsc
+    eng = small[0]
+    scores, shifts = eng.descriptor_scores()
+    want_s, want_k = jsc.descriptor_scores(_jring(eng).desc)
+    K = eng.ring.capacity
+    assert scores.shape == shifts.shape == (K, K)
+    assert int((n(scores) > 0.5).sum()) > K    # real keyframes score
+    np.testing.assert_allclose(n(scores), n(want_s), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(n(shifts), n(want_k))
+
+
 @pytest.mark.parametrize("use_sc", [True, False])
 def test_propose_closures_breaks_ties_like_lax_top_k(use_sc):
     """Every keyframe at one spot with one descriptor: all pairs tie in

@@ -355,3 +355,23 @@ def test_solve_auto_landmarks_raises_above_the_dense_bound(monkeypatch):
                    max_landmarks=jg.M)
     assert [s for s, _ in seen] == ["dense", "pcg"]
     assert seen[1][1]["cg_iters"] == 1 and seen[1][1]["max_poses"] == K
+
+
+def test_relative_pose_measurement_matches_jax():
+    """tests/test_graph.py's scene: the true poses of its noisy 32-pose
+    circle, every odometry pair and the closing pair, through both
+    packages' relative_pose_measurement: numpy (q, t) within 1e-6."""
+    from test_graph import _noisy_circle_graph
+    from veloslam_tpu.graph.posegraph import relative_pose_measurement as jrel
+    from veloslam_tpu_torch.core import se3
+    from veloslam_tpu_torch.graph.posegraph import relative_pose_measurement
+    _, true = _noisy_circle_graph(np.random.default_rng(0), n=32)
+    pairs = [(k - 1, k) for k in range(1, 32)] + [(31, 0), (5, 20)]
+    for i, j in pairs:
+        want = jrel(true[i], true[j])
+        got = relative_pose_measurement(
+            *(se3.Pose(t(np.asarray(p.q)), t(np.asarray(p.t)))
+              for p in (true[i], true[j])))
+        for a, b in zip(got, want):
+            assert isinstance(a, np.ndarray) and a.dtype == np.float32
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)

@@ -441,3 +441,53 @@ def test_pcap_reader_records_equal(seqs, tmp_path):
             assert a.tell() == b.tell()
         assert len(got) == len(want) > 10
         assert got == want
+
+
+@pytest.mark.parametrize("name", ["hdl32", "vlp16", "hdl64"])
+def test_to_xml_round_trips_through_both_packages(name, tmp_path):
+    """A calibration with every term perturbed, written by the port's
+    to_xml: both packages' from_xml read back the same float64 values,
+    and the file is byte-equal to the JAX package's to_xml's."""
+    rng = np.random.default_rng(len(name))
+    base = cal.default_for(name)
+    k = base.n_lasers
+    calib = base._replace(
+        rot_correction_deg=rng.normal(0, 2, k),
+        vert_correction_deg=base.vert_correction_deg + rng.normal(0, 0.1, k),
+        dist_correction_m=rng.normal(0, 0.01, k),
+        vert_offset_m=rng.normal(0, 0.02, k),
+        horiz_offset_m=rng.normal(0, 0.02, k))
+    ours, ref = str(tmp_path / "ours.xml"), str(tmp_path / "jax.xml")
+    cal.to_xml(calib, ours)
+    jcal.to_xml(jcal.LaserCalib(*calib), ref)
+    with open(ours, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    for back in (cal.from_xml(ours), jcal.from_xml(ours)):
+        assert back.n_lasers == k
+        # centimetre fields pass through ×100 then ÷100: equal to 1 ulp
+        for a, b in zip(back[:2], calib[:2]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(back[2:], calib[2:]):
+            np.testing.assert_allclose(a, b, rtol=1e-15, atol=0)
+    for a, b in zip(cal.from_xml(ours), jcal.from_xml(ours)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """device_trace(log_dir) records the region into log_dir as a Chrome
+    trace (on the CPU: CPU activity); device_trace(None) records
+    nothing."""
+    import torch
+
+    from veloslam_tpu_torch.utils.profiling import device_trace
+    with device_trace(None):
+        torch.ones(3).sum()
+    assert not any(tmp_path.iterdir())
+    log_dir = tmp_path / "trace"
+    with device_trace(str(log_dir)):
+        torch.mm(torch.ones(64, 64), torch.ones(64, 64)).sum()
+    files = list(log_dir.iterdir())
+    assert [f.name for f in files] == ["trace.json"]
+    trace = json.loads(files[0].read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any("mm" in nm for nm in names), sorted(names)[:20]

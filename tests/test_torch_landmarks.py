@@ -223,3 +223,61 @@ def test_extract_planes_needs_a_card_unless_told_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm.extract_planes(np.zeros((1, 3), int), np.ones(1), np.zeros((1, 3)),
                           np.eye(3)[None], 0.5)
+
+
+def _graph_test_scenes():
+    """tests/test_graph.py's post scenes, sensor frame: the near halves
+    of two lone posts (test_post_viewpoint_bias_correction) and the four
+    keyframe scans of test_landmark_association_end_to_end's world."""
+    import sys
+    import os
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_registration import _static_scan
+    from veloslam_tpu.io import simulate as jsim
+    scenes = []
+    for R, cx, cy in ((0.18, 10.25, 0.25), (0.15, 20.25, -0.25)):
+        th = np.linspace(-np.pi / 2, np.pi / 2, 40)
+        hits = np.stack([cx - R * np.cos(th), cy + R * np.sin(th)], -1)
+        scenes.append(np.concatenate(
+            [np.column_stack([hits, np.full(len(th), z)])
+             for z in np.linspace(0.05, 4.95, 300)]).astype(np.float32))
+    rng = np.random.default_rng(2)
+    world = jsim.World.demo(seed=9, n_posts=0, n_walls=6)
+    world.posts = np.column_stack([
+        rng.uniform(-15, 15, 10), rng.uniform(-15, 15, 10),
+        np.full(10, 0.3), np.zeros(10), np.full(10, 6.0)])
+    for k in range(4):
+        scenes.append(_static_scan(world, np.array([k * 1.5, 0.3 * k, 2.0]),
+                                   0.08 * k, n_az=1800))
+    return scenes
+
+
+def test_extract_scan_posts_matches_jax():
+    """extract_scan_posts (the grid built on the CPU here) against the
+    JAX one on tests/test_graph.py's scenes: the same detections, values
+    within 1e-5 m (the two grids' float32 moments are summed in other
+    orders); its host helpers on the JAX grid and on the raw scan equal
+    to the bit."""
+    import jax.numpy as jnp
+
+    from veloslam_tpu.registration import voxel as jvx
+    total = 0
+    for pts in _graph_test_scenes():
+        mask = np.ones(len(pts), bool)
+        mask[::11] = False
+        got = la.extract_scan_posts(pts, mask, device="cpu")
+        want = jla.extract_scan_posts(pts, mask)
+        assert got.shape == want.shape and len(want) >= 1
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        total += len(want)
+        grid = jvx.build_grid(jnp.asarray(pts), jnp.asarray(mask),
+                              jnp.zeros(3, jnp.float32), 0.5, capacity=8192)
+        host = [np.asarray(x) for x in (grid.keys, grid.count, grid.mean,
+                                        grid.cov)]
+        np.testing.assert_array_equal(
+            la._posts_from_host_grid(*host, 0.5, sensor_frame=True),
+            jla._posts_from_host_grid(*host, 0.5, sensor_frame=True))
+        for a, b in zip(la._host_voxel_stats(pts, mask, 0.5),
+                        jla._host_voxel_stats(pts, mask, 0.5)):
+            np.testing.assert_array_equal(a, b)
+    assert total >= 10

@@ -412,6 +412,42 @@ def test_online_pipeline_loopback():
     assert res["ins_health"]["inspva_count"] == st["ins_datagrams"] >= 40
 
 
+def test_idle_timeout_opens_when_the_receivers_are_ready():
+    """run_online's idle window counts from when its ports are bound and
+    on_ready has returned, not from its call: a setup longer than the
+    timeout (the fast engine's build on the card took ~1 s for the HDL-64
+    live session) must not end the session before the first packet.
+    Here on_ready itself takes 0.6 s against a 0.4 s timeout, and the
+    sender starts 0.05 s after it."""
+    seq = sim.generate_sequence(duration_s=0.05, model="hdl32", seed=3,
+                                world=sim.World.demo(3))
+    lidar_port, ins_port, pos_port = (replay.free_udp_port()
+                                      for _ in range(3))
+    ready = threading.Event()
+
+    def send():
+        ready.wait(timeout=10)
+        time.sleep(0.05)
+        udp.replay_packets(seq["packets"], "127.0.0.1", lidar_port,
+                           pace_us=100)
+
+    def on_ready():
+        time.sleep(0.6)
+        ready.set()
+
+    sender = threading.Thread(target=send, daemon=True)
+    sender.start()
+    res = SlamPipeline(device="cpu").run_online(
+        lidar_port=lidar_port, ins_port=ins_port, position_port=pos_port,
+        origin_llh_deg=(31.0, 121.5, 0.0), duration_s=30.0,
+        idle_timeout_s=0.4, on_ready=on_ready)
+    sender.join(timeout=5)
+    assert not sender.is_alive()
+    st = res["live_stats"]
+    assert st["lidar_packets"] == len(seq["packets"]) > 0
+    assert st["lidar_dropped"] == 0 and st["batches"] == 1
+
+
 @pytest.mark.parametrize("force_python", [False, True])
 def test_paced_replay_keeps_its_rate(force_python):
     """replay_packets sends every packet, in order, at its average pace

@@ -20,14 +20,13 @@ from jax.sharding import NamedSharding
 from test_graph import _noisy_circle_graph
 from test_halo import _scene
 from test_registration import _pad, _static_scan
-from torch_helpers import n, t
+from torch_helpers import n, port_pose, t
 from torch_helpers import small_threads  # noqa: F401
 import torch_multihost_worker as worker
 from veloslam_tpu.config import MeshConfig as JMeshConfig
 from veloslam_tpu.core import se3 as jse3
 from veloslam_tpu.decode import calibration as jcal
 from veloslam_tpu.decode.decode import DeviceCalib as JDeviceCalib
-from veloslam_tpu.graph.posegraph import relative_pose_measurement
 from veloslam_tpu.io import simulate as jsim
 from veloslam_tpu.parallel import dist as jdist
 from veloslam_tpu.parallel import halo as jhalo
@@ -38,6 +37,7 @@ from veloslam_tpu.registration import voxel as jvx
 from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.decode import calibration as cal
 from veloslam_tpu_torch.decode.decode import DeviceCalib, decode_packets
+from veloslam_tpu_torch.graph.posegraph import relative_pose_measurement
 from veloslam_tpu_torch.parallel import dist, halo
 from veloslam_tpu_torch.registration import gicp
 from veloslam_tpu_torch.registration import voxel as vx
@@ -60,7 +60,8 @@ def _landmark_graph():
     rng = np.random.default_rng(11)
     g, true = _noisy_circle_graph(rng, n=24, drift=0.04, yaw_drift=0.01,
                                   max_poses=32, max_edges=64)
-    rel_q, rel_t = relative_pose_measurement(true[23], true[0])
+    rel_q, rel_t = relative_pose_measurement(port_pose(true[23]),
+                                             port_pose(true[0]))
     g.add_edge(23, 0, rel_q, rel_t, info=(1000.0,) * 6)
     for lx, ly in ((5.0, 8.0), (30.0, 20.0), (15.0, 35.0)):
         li = g.add_landmark(np.array([lx, ly, 1.0], np.float32))

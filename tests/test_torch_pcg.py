@@ -35,13 +35,13 @@ import torch
 
 from chip_smoke import write_pipeline_drive
 from test_graph import _noisy_circle_graph
-from torch_helpers import n, small_threads, t  # noqa: F401
+from torch_helpers import n, port_pose, small_threads, t  # noqa: F401
 from veloslam_tpu.core import se3 as jse3
 from veloslam_tpu.graph import pcg as jpcg
 from veloslam_tpu.graph.posegraph import GraphArrays as JGraph
-from veloslam_tpu.graph.posegraph import relative_pose_measurement
 from veloslam_tpu_torch import convert
 from veloslam_tpu_torch.graph import chain, optimize, pcg
+from veloslam_tpu_torch.graph.posegraph import relative_pose_measurement
 
 PIPELINE_GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures",
                                "pipeline_golden_seed3.npz")
@@ -53,7 +53,8 @@ def ring_graph():
     rng = np.random.default_rng(7)
     g, true = _noisy_circle_graph(rng, n=48, drift=0.03, yaw_drift=0.01,
                                   max_poses=64, max_edges=128)
-    rel_q, rel_t = relative_pose_measurement(true[47], true[0])
+    rel_q, rel_t = relative_pose_measurement(port_pose(true[47]),
+                                             port_pose(true[0]))
     g.add_edge(47, 0, rel_q, rel_t, info=(1000.0,) * 6)
     return g
 

@@ -1,5 +1,7 @@
 """Parity of the port's SE(3) math and pose interpolation with the JAX
-package, on the same seeded numpy inputs.
+package, on the same seeded numpy inputs (every quaternion and pose
+function of veloslam_tpu/core/se3.py, the axis-angle, matrix and Euler
+conversions and to_matrix among them).
 
 Tolerance: atol 1e-6 — both sides are float32 elementwise math on unit
 quaternions and metre-scale vectors (inputs of order 1 m), so differences
@@ -35,7 +37,10 @@ def data():
             "u": rng.random(k).astype(np.float32),
             "tangent": np.concatenate(
                 [rng.normal(0, 0.5, (k, 3)),
-                 rng.normal(0, 2, (k, 3))], 1).astype(np.float32)}
+                 rng.normal(0, 2, (k, 3))], 1).astype(np.float32),
+            "axis": _quats(rng, k)[:, 1:] / np.linalg.norm(
+                _quats(rng, k)[:, 1:], axis=1, keepdims=True),
+            "euler": rng.uniform(-180, 180, (3, k)).astype(np.float32)}
 
 
 def _leaves(x):
@@ -67,6 +72,13 @@ CASES = {
     "log": lambda m, d, c: m.log(_pose(m, d["qa"], d["ta"], c)),
     "retract": lambda m, d, c: m.retract(_pose(m, d["qa"], d["ta"], c),
                                          c(d["tangent"])),
+    "quat_from_axis_angle": lambda m, d, c: m.quat_from_axis_angle(
+        c(d["axis"]), c(d["u"] * 7.0 - 3.5)),
+    "matrix_to_quat": lambda m, d, c: m.matrix_to_quat(
+        m.quat_to_matrix(c(d["qa"]))),
+    "euler_deg_to_quat": lambda m, d, c: m.euler_deg_to_quat(
+        *(c(a) for a in d["euler"])),
+    "to_matrix": lambda m, d, c: m.to_matrix(_pose(m, d["qa"], d["ta"], c)),
 }
 
 
@@ -137,3 +149,18 @@ def test_interpolate_poses_np_host_copy_matches_jax(track):
     b = jtl.interpolate_poses_np(*track)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
+
+
+def test_matrix_to_quat_takes_each_of_shepperds_branches():
+    """Rotations by π about x, y and z and the identity: each picks
+    another of the four constructions (the largest diagonal term), w ≥ 0,
+    on the caller's device."""
+    q = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1],
+                  [0.5, 0.5, 0.5, 0.5]], np.float32)
+    m = n(se3.quat_to_matrix(t(q)))
+    got = se3.matrix_to_quat(t(m))
+    want = n(jse3.matrix_to_quat(jnp.asarray(m)))
+    np.testing.assert_allclose(n(got), want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(np.abs(n(got)), np.abs(q), atol=ATOL)
+    assert got.device.type == "cpu"
+    assert se3.euler_deg_to_quat(0.0, 0.0, 90.0).shape == (4,)

@@ -27,6 +27,12 @@ def n(x):
     return np.asarray(x)
 
 
+def port_pose(p):
+    """A JAX package Pose → the port's Pose of CPU tensors."""
+    from veloslam_tpu_torch.core import se3
+    return se3.Pose(t(p.q), t(p.t))
+
+
 def normal_equation_slots(F, P, seed, max_dist=2.0):
     """Posed-scan inputs: points to 40 m, unit normals, ~80% hits, means
     along the normal so residuals cover both Huber regimes and ~10% fail

@@ -35,6 +35,8 @@ from veloslam_tpu_torch.io import udp
 # measure_live_loopback's senders start this long after run_online is
 # ready.
 SENDER_LEAD_S = 0.5
+# measure_live_loopback's session ends this long after its last packet.
+IDLE_TIMEOUT_S = 1.5
 
 
 def replay_ins_txt(path: str, dest_ip: str, port: int,
@@ -134,7 +136,9 @@ def measure_live_loopback(duration_s: float = 5.0, rate: float = 1.0,
     sustained pkt/s (the gaps between the packets received over the LiDAR
     sender's measured window, from its clock origin to its last send),
     the INS sender's achieved Hz, both senders' worst lateness, frames,
-    the per-batch feed time and the trajectory (times_us, positions).
+    the per-batch feed time, the lag from the last packet sent to the
+    session's end (idle timeout excluded; with `fast`, the stream's
+    device finalize included) and the trajectory (times_us, positions).
     The drive is `pcap` + `ins` when given, else a simulated `duration_s`
     s HDL-32 drive (seed 17, World.demo(6)); the config is `config`, else
     SlamConfig without landmarks.  `fast` uses the device-resident
@@ -169,6 +173,7 @@ def measure_live_loopback(duration_s: float = 5.0, rate: float = 1.0,
                 sent["lidar"]["n"] = udp.replay_packets(
                     pkts, "127.0.0.1", lidar_port, pace_us, t0=t0,
                     stats=sent["lidar"])
+                sent["lidar"]["done"] = time.monotonic()
 
             def send_ins():
                 sent["ins"]["n"] = replay_ins_txt(
@@ -184,8 +189,9 @@ def measure_live_loopback(duration_s: float = 5.0, rate: float = 1.0,
         res = pipe.run_online(lidar_port=lidar_port, ins_port=ins_port,
                               position_port=pos_port, origin_llh_deg=origin,
                               duration_s=len(pkts) * pace_us * 1e-6 + 30.0,
-                              idle_timeout_s=1.5, on_ready=start_senders,
-                              fast=fast)
+                              idle_timeout_s=IDLE_TIMEOUT_S,
+                              on_ready=start_senders, fast=fast)
+        end = time.monotonic()
         wall = time.time() - t0
         for t in threads:
             t.join(timeout=5.0)
@@ -215,6 +221,10 @@ def measure_live_loopback(duration_s: float = 5.0, rate: float = 1.0,
         "batch_feed_ms_max": round(st["batch_feed_ms_max"], 3),
         "batch_period_ms": round(
             cfg.pipeline.packets_per_batch * pace_us * 1e-3, 1),
+        # From the last LiDAR packet sent to the session's end, the idle
+        # timeout left out: how far the pipeline trailed the sensor (fast:
+        # the end-of-stream device finalize included).
+        "lag_s": round(end - lidar.get("done", nan) - IDLE_TIMEOUT_S, 3),
         "wall_s": round(wall, 2),
         "mode": "fast" if fast else "per-frame",
         "times_us": res["times_us"],

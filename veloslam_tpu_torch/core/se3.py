@@ -58,6 +58,12 @@ def cross(a, b):
                         ax * by - ay * bx], dim=-1)
 
 
+def quat_from_axis_angle(axis, angle):
+    """Unit axes (..., 3) and angles (...,) in radians → quaternions."""
+    half = 0.5 * angle[..., None]
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
 def quat_to_matrix(q):
     """Unit quaternions (..., 4) → rotation matrices (..., 3, 3)."""
     w, x, y, z = q.unbind(-1)
@@ -70,6 +76,29 @@ def quat_to_matrix(q):
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(*m.shape[:-1], 3, 3)
+
+
+def matrix_to_quat(m):
+    """Rotation matrices (..., 3, 3) → unit quaternions, w ≥ 0: of
+    Shepperd's four constructions, the one whose diagonal term (the trace
+    or a diagonal entry) is largest, per element."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1 + tr, m21 - m12, m02 - m20, m10 - m01], -1)
+    qx = torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20],
+                     -1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21],
+                     -1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22],
+                     -1)
+    best = torch.argmax(torch.stack([tr, m00, m11, m22], -1), dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], -2)     # (..., 4 candidates, 4)
+    q = torch.gather(cands, -2, best[..., None, None].expand(
+        *best.shape, 1, 4))[..., 0, :]
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    return quat_normalize(q)
 
 
 def quat_rotate(q, v):
@@ -120,6 +149,22 @@ def quat_slerp(q0, q1, u):
     return quat_normalize(w0 * q0 + w1 * q1)
 
 
+# --- reference Euler convention ---------------------------------------------
+
+def euler_deg_to_quat(roll_deg, pitch_deg, yaw_deg, *, device=None):
+    """The reference's pose convention, R = Ry(roll)·Rx(pitch)·Rz(yaw) in
+    degrees, as float32 quaternions on the inputs' device (tensors), else
+    on `device`."""
+    r, p, y = (torch.deg2rad(torch.as_tensor(a, dtype=torch.float32,
+                                             device=device))
+               for a in (roll_deg, pitch_deg, yaw_deg))
+    zero, one = torch.zeros_like(r), torch.ones_like(r)
+    qy = quat_from_axis_angle(torch.stack([zero, one, zero], -1), r)
+    qx = quat_from_axis_angle(torch.stack([one, zero, zero], -1), p)
+    qz = quat_from_axis_angle(torch.stack([zero, zero, one], -1), y)
+    return quat_mul(qy, quat_mul(qx, qz))
+
+
 # --- SE(3) -------------------------------------------------------------------
 
 def compose(a: Pose, b: Pose) -> Pose:
@@ -160,6 +205,15 @@ def log(p: Pose):
 def retract(p: Pose, delta) -> Pose:
     """Left-multiplicative update: exp(delta) ∘ p (delta: (..., 6))."""
     return compose(exp(delta), p)
+
+
+def to_matrix(p: Pose):
+    """Pose → homogeneous (..., 4, 4) matrix."""
+    R = quat_to_matrix(p.q)
+    top = torch.cat([R, p.t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(*top.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)
 
 
 # --- host copy (numpy) -------------------------------------------------------

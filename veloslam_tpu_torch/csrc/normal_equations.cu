@@ -18,7 +18,7 @@
 // What bounds it: the partial pass must read the 1-byte hit flag of every
 // point and p, mu, n (36 B) of each point with a correspondence: at F = 96,
 // P = 16384 and 56-80% hits, 33-47 MB, 10-14 us at 3.35 TB/s, against
-// ~110 flops per hit (under 2 us at the float32 peak).  It is bound by
+// ~110 float64 operations per hit (4-5 us at 34 TFLOP/s).  It is bound by
 // device-memory bandwidth.  Hits are scattered, and a 32-byte sector
 // holds 2.7 points, so at 56-80% hits nearly every sector of p, mu and n
 // holds one: DRAM must deliver nearly all of their 58 MB.  Around the
@@ -46,8 +46,20 @@
 //   the per-tile barriers and waits then cost more than the copies save.
 // - Finalize pass.  One warp per slot adds the k partials in index order
 //   and writes H, b, the sums and n_hit; with a pose, lane 0 then takes the
-//   step in float32 (Cholesky, two triangular solves, guard, clamp, left
-//   retraction with quat_exp's small-angle branch below 1e-6 rad).
+//   step (Cholesky, two triangular solves, guard, clamp, left retraction
+//   with quat_exp's small-angle branch below 1e-6 rad) from the float32 H
+//   and b it wrote.
+// - Arithmetic in float64 (inputs and outputs float32).  b is a sum of
+//   w J r over up to 16384 points whose terms cancel: near convergence
+//   |b| is a few hundredths while the terms reach tens, and r = n.(p'-mu)
+//   subtracts positions tens of metres out, so float32 evaluation leaves
+//   each term ~1e-4 off and b off by up to 1e-2 (HDL-64 and VLP-16
+//   drives, against a float64 evaluation; the plain float32 version is as
+//   far off), above its 1e-3 tolerance; and float32 6x6 solves of the
+//   ill-conditioned H of sparse VLP-16 scans differ by up to 2.7e-4 m.
+//   Points, sums and the step in float64 put H, b and the pose at float32
+//   rounding of the exact values, for ~110 float64 operations a hit:
+//   under 5 us at 34 TFLOP/s against the 10-14 us the bytes take.
 // So a GN iteration is two launches, and two runs give bitwise-equal
 // results on any card.
 
@@ -76,36 +88,37 @@ struct Layout {
 };
 
 struct Pose7 {
-  float qw, qx, qy, qz, tx, ty, tz;
+  double qw, qx, qy, qz, tx, ty, tz;
 };
 
-// One point's terms added to a thread's 29 sums and its hit count.
-__device__ __forceinline__ void accumulate(float* acc, int& count, float vx,
-                                           float vy, float vz, float mx,
-                                           float my, float mz, float nx,
-                                           float ny, float nz, bool flagged,
-                                           const Pose7& p, float huber_delta,
-                                           float max_dist) {
+// One point's terms added to a thread's 29 sums and its hit count, in
+// float64 from the float32 inputs.
+__device__ __forceinline__ void accumulate(double* acc, int& count,
+                                           double vx, double vy, double vz,
+                                           double mx, double my, double mz,
+                                           double nx, double ny, double nz,
+                                           bool flagged, const Pose7& p,
+                                           double huber_delta,
+                                           double max_dist) {
   // p' = v + 2 (w (u x v) + u x (u x v)), u = (qx, qy, qz): the
   // quaternion rotation of core/se3.quat_rotate, then + t.
-  const float uvx = p.qy * vz - p.qz * vy;
-  const float uvy = p.qz * vx - p.qx * vz;
-  const float uvz = p.qx * vy - p.qy * vx;
-  const float px = vx + 2.f * (p.qw * uvx + (p.qy * uvz - p.qz * uvy)) + p.tx;
-  const float py = vy + 2.f * (p.qw * uvy + (p.qz * uvx - p.qx * uvz)) + p.ty;
-  const float pz = vz + 2.f * (p.qw * uvz + (p.qx * uvy - p.qy * uvx)) + p.tz;
-  const float r = nx * (px - mx) + ny * (py - my) + nz * (pz - mz);
-  const float ar = fabsf(r);
+  const double uvx = p.qy * vz - p.qz * vy;
+  const double uvy = p.qz * vx - p.qx * vz;
+  const double uvz = p.qx * vy - p.qy * vx;
+  const double px = vx + 2.0 * (p.qw * uvx + (p.qy * uvz - p.qz * uvy)) + p.tx;
+  const double py = vy + 2.0 * (p.qw * uvy + (p.qz * uvx - p.qx * uvz)) + p.ty;
+  const double pz = vz + 2.0 * (p.qw * uvz + (p.qx * uvy - p.qy * uvx)) + p.tz;
+  const double r = nx * (px - mx) + ny * (py - my) + nz * (pz - mz);
+  const double ar = fabs(r);
   const bool use = flagged && ar < max_dist;
-  const float w =
-      !use ? 0.f
-           : (ar <= huber_delta ? 1.f : huber_delta / fmaxf(ar, 1e-12f));
-  const float J[6] = {py * nz - pz * ny, pz * nx - px * nz,
-                      px * ny - py * nx, nx, ny, nz};
+  const double w =
+      !use ? 0.0 : (ar <= huber_delta ? 1.0 : huber_delta / fmax(ar, 1e-12));
+  const double J[6] = {py * nz - pz * ny, pz * nx - px * nz,
+                       px * ny - py * nx, nx, ny, nz};
   int s = 0;
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
-    const float wa = w * J[a];
+    const double wa = w * J[a];
 #pragma unroll
     for (int c = a; c < 6; ++c) acc[s++] += wa * J[c];
     acc[21 + a] += wa * r;
@@ -118,14 +131,14 @@ __device__ __forceinline__ void accumulate(float* acc, int& count, float vx,
 // kVec: P and chunk are multiples of 4, so each group of 4 points starts
 // on a 16-byte boundary of p, mu, n (base pointers 16-byte aligned).
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 ne_partial_kernel(const float* __restrict__ pts, const float* __restrict__ q,
                   const float* __restrict__ t, const float* __restrict__ mu,
                   const float* __restrict__ nrm,
                   const uint8_t* __restrict__ hit, Layout L,
-                  float huber_delta, float max_dist,
-                  float* __restrict__ partial) {
-  __shared__ float red[kWarps][kSums];
+                  double huber_delta, double max_dist,
+                  double* __restrict__ partial) {
+  __shared__ double red[kWarps][kSums];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int item = blockIdx.x; item < L.F * L.k; item += gridDim.x) {
@@ -136,9 +149,9 @@ ne_partial_kernel(const float* __restrict__ pts, const float* __restrict__ q,
                      __ldg(t + 3 * f),     __ldg(t + 3 * f + 1),
                      __ldg(t + 3 * f + 2)};
     const int64_t base = static_cast<int64_t>(f) * L.P;
-    float acc[kFloatSums];
+    double acc[kFloatSums];
 #pragma unroll
-    for (int s = 0; s < kFloatSums; ++s) acc[s] = 0.f;
+    for (int s = 0; s < kFloatSums; ++s) acc[s] = 0.0;
     int count = 0;
     if (kVec) {
       for (int g = begin + 4 * threadIdx.x; g < end; g += 4 * kThreads) {
@@ -186,43 +199,37 @@ ne_partial_kernel(const float* __restrict__ pts, const float* __restrict__ q,
     if (lane == 0) {
 #pragma unroll
       for (int s = 0; s < kFloatSums; ++s) red[warp][s] = acc[s];
-      red[warp][kFloatSums] = __int_as_float(count);
+      red[warp][kFloatSums] = count;        // exact in a double
     }
     __syncthreads();
     const int s = threadIdx.x;
     if (s < kSums) {
-      float* out = partial + static_cast<size_t>(item) * kSums;
-      if (s < kFloatSums) {
-        float v = 0.f;
-        for (int w8 = 0; w8 < kWarps; ++w8) v += red[w8][s];
-        out[s] = v;
-      } else {
-        int c = 0;
-        for (int w8 = 0; w8 < kWarps; ++w8) c += __float_as_int(red[w8][s]);
-        out[s] = __int_as_float(c);
-      }
+      double* out = partial + static_cast<size_t>(item) * kSums;
+      double v = 0.0;
+      for (int w8 = 0; w8 < kWarps; ++w8) v += red[w8][s];
+      out[s] = v;
     }
     __syncthreads();          // `red` is written again for the next item
   }
 }
 
-// The damped step of one slot from its sums (lane 0 of the slot's warp):
-// the float32 counterpart of registration/normal_equations.py::_gn_step.
-__device__ void gn_step(const float* sum, int n_hit, float damping,
+// The damped step of one slot from its sums (lane 0 of the slot's warp),
+// in float64: registration/normal_equations.py::_gn_step.
+__device__ void gn_step(const double* sum, int n_hit, double damping,
                         const float* q, const float* t, float* q_out,
                         float* t_out, int* step) {
   // Fully unrolled (constant indices), so A stays in registers.
-  float A[6][6];
+  double A[6][6];
   int s = 0;
 #pragma unroll
   for (int a = 0; a < 6; ++a) {
 #pragma unroll
     for (int c = a; c < 6; ++c) A[a][c] = A[c][a] = sum[s++];
   }
-  float trace = 0.f;
+  double trace = 0.0;
 #pragma unroll
   for (int i = 0; i < 6; ++i) trace += A[i][i];
-  const float ridge = 1e-6f * trace;
+  const double ridge = 1e-6 * trace;
 #pragma unroll
   for (int i = 0; i < 6; ++i) A[i][i] = (A[i][i] + damping) + ridge;
   // Cholesky A = L L^T in place (lower triangle).  A pivot that is not
@@ -230,32 +237,32 @@ __device__ void gn_step(const float* sum, int n_hit, float damping,
   bool ok = n_hit > 10;
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
-    float d = A[j][j];
+    double d = A[j][j];
 #pragma unroll
     for (int c = 0; c < j; ++c) d -= A[j][c] * A[j][c];
-    ok = ok && d > 0.f && isfinite(d);
-    const float ljj = sqrtf(d);
+    ok = ok && d > 0.0 && isfinite(d);
+    const double ljj = sqrt(d);
     A[j][j] = ljj;
 #pragma unroll
     for (int i = j + 1; i < 6; ++i) {
-      float v = A[i][j];
+      double v = A[i][j];
 #pragma unroll
       for (int c = 0; c < j; ++c) v -= A[i][c] * A[j][c];
       A[i][j] = v / ljj;
     }
   }
   // L y = b, then L^T x = y; delta = -x.
-  float y[6], x[6], delta[6];
+  double y[6], x[6], delta[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
-    float v = sum[21 + i];
+    double v = sum[21 + i];
 #pragma unroll
     for (int c = 0; c < i; ++c) v -= A[i][c] * y[c];
     y[i] = v / A[i][i];
   }
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
-    float v = y[i];
+    double v = y[i];
 #pragma unroll
     for (int c = i + 1; c < 6; ++c) v -= A[c][i] * x[c];
     x[i] = v / A[i][i];
@@ -263,39 +270,42 @@ __device__ void gn_step(const float* sum, int n_hit, float damping,
 #pragma unroll
   for (int i = 0; i < 6; ++i) ok = ok && isfinite(x[i]);
 #pragma unroll
-  for (int i = 0; i < 6; ++i) delta[i] = ok ? -x[i] : 0.f;
+  for (int i = 0; i < 6; ++i) delta[i] = ok ? -x[i] : 0.0;
   // Clamp runaway steps (> 1 m or > 0.3 rad per iteration).
-  const float tn =
-      sqrtf(delta[3] * delta[3] + delta[4] * delta[4] + delta[5] * delta[5]);
-  const float rn =
-      sqrtf(delta[0] * delta[0] + delta[1] * delta[1] + delta[2] * delta[2]);
-  const float scale = fminf(
-      fminf(1.f / fmaxf(tn, 1e-12f), 0.3f / fmaxf(rn, 1e-12f)), 1.f);
+  const double tn =
+      sqrt(delta[3] * delta[3] + delta[4] * delta[4] + delta[5] * delta[5]);
+  const double rn =
+      sqrt(delta[0] * delta[0] + delta[1] * delta[1] + delta[2] * delta[2]);
+  const double scale =
+      fmin(fmin(1.0 / fmax(tn, 1e-12), 0.3 / fmax(rn, 1e-12)), 1.0);
 #pragma unroll
   for (int i = 0; i < 6; ++i) delta[i] *= scale;
-  *step = !ok ? 0 : (scale < 1.f ? 2 : 1);
+  *step = !ok ? 0 : (scale < 1.0 ? 2 : 1);
   // exp(delta) o pose: quat_exp of the rotation part, then compose.
-  const float vx = delta[0], vy = delta[1], vz = delta[2];
-  const float angle = sqrtf(fmaxf(vx * vx + vy * vy + vz * vz, 1e-24f));
-  const float kk = angle < 1e-6f ? 0.5f - angle * angle / 48.f
-                                 : sinf(0.5f * angle) / angle;
-  const float aw = cosf(0.5f * angle), ax = kk * vx, ay = kk * vy,
-              az = kk * vz;
-  const float bw = q[0], bx = q[1], by = q[2], bz = q[3];
-  q_out[0] = aw * bw - ax * bx - ay * by - az * bz;
-  q_out[1] = aw * bx + ax * bw + ay * bz - az * by;
-  q_out[2] = aw * by - ax * bz + ay * bw + az * bx;
-  q_out[3] = aw * bz + ax * by - ay * bx + az * bw;
-  const float tx = t[0], ty = t[1], tz = t[2];
-  const float uvx = ay * tz - az * ty;
-  const float uvy = az * tx - ax * tz;
-  const float uvz = ax * ty - ay * tx;
-  t_out[0] = delta[3] + (tx + 2.f * (aw * uvx + (ay * uvz - az * uvy)));
-  t_out[1] = delta[4] + (ty + 2.f * (aw * uvy + (az * uvx - ax * uvz)));
-  t_out[2] = delta[5] + (tz + 2.f * (aw * uvz + (ax * uvy - ay * uvx)));
+  const double vx = delta[0], vy = delta[1], vz = delta[2];
+  const double angle = sqrt(fmax(vx * vx + vy * vy + vz * vz, 1e-24));
+  const double kk = angle < 1e-6 ? 0.5 - angle * angle / 48.0
+                                 : sin(0.5 * angle) / angle;
+  const double aw = cos(0.5 * angle), ax = kk * vx, ay = kk * vy,
+               az = kk * vz;
+  const double bw = q[0], bx = q[1], by = q[2], bz = q[3];
+  q_out[0] = static_cast<float>(aw * bw - ax * bx - ay * by - az * bz);
+  q_out[1] = static_cast<float>(aw * bx + ax * bw + ay * bz - az * by);
+  q_out[2] = static_cast<float>(aw * by - ax * bz + ay * bw + az * bx);
+  q_out[3] = static_cast<float>(aw * bz + ax * by - ay * bx + az * bw);
+  const double tx = t[0], ty = t[1], tz = t[2];
+  const double uvx = ay * tz - az * ty;
+  const double uvy = az * tx - ax * tz;
+  const double uvz = ax * ty - ay * tx;
+  t_out[0] = static_cast<float>(
+      delta[3] + (tx + 2.0 * (aw * uvx + (ay * uvz - az * uvy))));
+  t_out[1] = static_cast<float>(
+      delta[4] + (ty + 2.0 * (aw * uvy + (az * uvx - ax * uvz))));
+  t_out[2] = static_cast<float>(
+      delta[5] + (tz + 2.0 * (aw * uvz + (ax * uvy - ay * uvx))));
 }
 
-__global__ void ne_finalize_kernel(const float* __restrict__ partial, int k,
+__global__ void ne_finalize_kernel(const double* __restrict__ partial, int k,
                                    float* __restrict__ H,
                                    float* __restrict__ b,
                                    float* __restrict__ err_sum,
@@ -307,19 +317,19 @@ __global__ void ne_finalize_kernel(const float* __restrict__ partial, int k,
                                    float* __restrict__ t_out,
                                    float* __restrict__ err,
                                    int* __restrict__ step) {
-  __shared__ float sum[kSums];
+  // The sums as written out (float32, n_hit exact), which the step reads.
+  __shared__ double sum[kSums];
   const int f = blockIdx.x;
   const int s = threadIdx.x;
   if (s < kSums) {
-    const float* p = partial + static_cast<size_t>(f) * k * kSums + s;
+    const double* p = partial + static_cast<size_t>(f) * k * kSums + s;
+    double acc = 0.0;
+    for (int i = 0; i < k; ++i) acc += p[i * kSums];
     if (s == kFloatSums) {
-      int c = 0;
-      for (int i = 0; i < k; ++i) c += __float_as_int(p[i * kSums]);
-      n_hit[f] = c;
-      sum[s] = __int_as_float(c);
+      n_hit[f] = static_cast<int>(acc);
+      sum[s] = acc;
     } else {
-      float v = 0.f;
-      for (int i = 0; i < k; ++i) v += p[i * kSums];
+      const float v = static_cast<float>(acc);
       sum[s] = v;
       if (s < 21) {
         H[f * 36 + kRow[s] * 6 + kCol[s]] = v;
@@ -336,9 +346,9 @@ __global__ void ne_finalize_kernel(const float* __restrict__ partial, int k,
   if (!q_out) return;
   __syncwarp();
   if (s != 0) return;
-  err[f] = sum[27] / fmaxf(sum[28], 1.f);
-  gn_step(sum, __float_as_int(sum[kFloatSums]), damping, q + 4 * f, t + 3 * f,
-          q_out + 4 * f, t_out + 3 * f, step + f);
+  err[f] = static_cast<float>(sum[27] / fmax(sum[28], 1.0));
+  gn_step(sum, static_cast<int>(sum[kFloatSums]), damping, q + 4 * f,
+          t + 3 * f, q_out + 4 * f, t_out + 3 * f, step + f);
 }
 
 // Blocks of the partial pass that the card keeps resident at once.
@@ -362,15 +372,15 @@ int resident_blocks() {
 }  // namespace
 
 // Launches both passes on `stream`; returns a cudaError_t (0 = ok).
-// `partial` is caller-allocated scratch of F * ceil(P / chunk) * 30 floats
-// (at least F * 30).  pts, mu, nrm and hit are 16-byte aligned.
+// `partial` is caller-allocated scratch of F * ceil(P / chunk) * 30
+// doubles (at least F * 30).  pts, mu, nrm and hit are 16-byte aligned.
 // err_sum and w_sum may be null.  With q_out non-null the finalize also
 // takes the damped step: q_out (F, 4), t_out (F, 3), err (F,) = err_sum /
 // max(w_sum, 1) and step (F,): 0 rejected, 1 taken, 2 taken clamped.
 extern "C" int veloslam_normal_equations(
     const float* pts, const float* q, const float* t, const float* mu,
     const float* nrm, const uint8_t* hit, int F, int P, float huber_delta,
-    float max_dist, int chunk, float* partial, float* H, float* b,
+    float max_dist, int chunk, double* partial, float* H, float* b,
     float* err_sum, float* w_sum, int* n_hit, float damping, float* q_out,
     float* t_out, float* err, int* step, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

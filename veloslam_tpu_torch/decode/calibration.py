@@ -1,7 +1,7 @@
 """Laser calibration tables (host, numpy): built-in profiles and the
 Velodyne XML loader.
 
-A jax-free copy of the built-in profiles and `from_xml` of
+A jax-free copy of the built-in profiles, `from_xml` and `to_xml` of
 veloslam_tpu/decode/calibration.py (importing that module imports jax
 through the decode package's __init__).  tests/test_torch_host.py holds
 the copy equal to the original.
@@ -125,3 +125,29 @@ def from_xml(path: str) -> LaserCalib:
     return LaserCalib(fields["rot"][:n], fields["vert"][:n],
                       fields["dist"][:n], fields["voff"][:n],
                       fields["hoff"][:n])
+
+
+def to_xml(calib: LaserCalib, path: str) -> None:
+    """Write a calibration in the schema `from_xml` reads (a per-unit
+    db.xml): every laser enabled, centimetre fields from metres, each
+    value as Python's repr, so the file reads back to the same floats."""
+    root = ET.Element("boost_serialization")
+    db = ET.SubElement(root, "DB")
+    enabled = ET.SubElement(db, "enabled_")
+    for _ in range(calib.n_lasers):
+        ET.SubElement(enabled, "item").text = "1"
+    points = ET.SubElement(db, "points_")
+    for i in range(calib.n_lasers):
+        px = ET.SubElement(ET.SubElement(points, "item"), "px")
+        ET.SubElement(px, "id_").text = str(i)
+        ET.SubElement(px, "rotCorrection_").text = repr(
+            float(calib.rot_correction_deg[i]))
+        ET.SubElement(px, "vertCorrection_").text = repr(
+            float(calib.vert_correction_deg[i]))
+        ET.SubElement(px, "distCorrection_").text = repr(
+            float(calib.dist_correction_m[i] * 100.0))
+        ET.SubElement(px, "vertOffsetCorrection_").text = repr(
+            float(calib.vert_offset_m[i] * 100.0))
+        ET.SubElement(px, "horizOffsetCorrection_").text = repr(
+            float(calib.horiz_offset_m[i] * 100.0))
+    ET.ElementTree(root).write(path)

@@ -1,12 +1,14 @@
 """Landmark association: post detections → pose-graph observations.
 
-A host numpy copy of the batched path of
-veloslam_tpu/graph/landmark_assoc.py (the JAX package runs this stage in
-numpy too): posts extracted from every keyframe scan in one fused voxel
-pass become graph landmarks observed from several keyframes, the work
-the Schur-complement solver (graph.optimize.solve_with_landmarks)
-eliminates.  tests/test_torch_landmarks.py holds the copy equal,
-observation order included.
+Port of veloslam_tpu/graph/landmark_assoc.py.  The batched path is a
+host numpy copy (the JAX package runs this stage in numpy too): posts
+extracted from every keyframe scan in one fused voxel pass become graph
+landmarks observed from several keyframes, the work the Schur-complement
+solver (graph.optimize.solve_with_landmarks) eliminates.  The single-scan
+`extract_scan_posts` builds its voxel grid with registration/voxel.py on
+a device, as the JAX one does with its device grid.
+tests/test_torch_landmarks.py holds the copy equal, observation order
+included.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from veloslam_tpu_torch.graph.posegraph import PoseGraph
 from veloslam_tpu_torch.map.landmarks import extract_posts
+from veloslam_tpu_torch.registration import voxel as vx
 
 
 def _post_anchors(posts: np.ndarray,
@@ -37,6 +41,74 @@ def _post_anchors(posts: np.ndarray,
         xy = xy + u * push[:, None]
     return np.stack([xy[:, 0], xy[:, 1],
                      posts[:, 2] + 0.5 * posts[:, 3]], -1)
+
+
+def _posts_from_host_grid(keys, count, mean, cov, voxel_size: float,
+                          sensor_frame: bool = False) -> np.ndarray:
+    """A voxel grid's occupied rows (10-bit packed keys about a zero
+    origin) → `extract_posts` → (K, 3) post anchors."""
+    occ = keys != vx.INVALID_KEY
+    if not occ.any():
+        return np.zeros((0, 3))
+    keys = keys[occ]
+    bits, half = 10, 512
+    axis_mask = (1 << bits) - 1
+    coords = np.stack([(keys >> (2 * bits)) & axis_mask,
+                       (keys >> bits) & axis_mask,
+                       keys & axis_mask], -1) - half
+    posts = extract_posts(coords, count[occ], mean[occ], cov[occ],
+                          voxel_size)
+    if len(posts) == 0:
+        return np.zeros((0, 3))
+    return _post_anchors(posts, sensor_frame=sensor_frame)
+
+
+def extract_scan_posts(pts: np.ndarray, mask: np.ndarray,
+                       voxel_size: float = 0.5, capacity: int = 8192,
+                       device="cuda") -> np.ndarray:
+    """Detect post landmarks in one sensor-frame scan: its voxel grid
+    built on `device` (cuda by default; `device="cpu"` where there is no
+    card), read back once, then the posts on the host.  Returns (K, 3)
+    post anchors (column centre at base height + half height, pushed back
+    onto the post's axis)."""
+    dev = torch.device(device)
+    grid = vx.build_grid(
+        torch.as_tensor(np.asarray(pts, np.float32), device=dev),
+        torch.as_tensor(np.asarray(mask, bool), device=dev),
+        torch.zeros(3, dtype=torch.float32, device=dev),
+        torch.tensor(voxel_size, dtype=torch.float32, device=dev),
+        capacity=capacity)
+    return _posts_from_host_grid(
+        grid.keys.cpu().numpy(), grid.count.cpu().numpy(),
+        grid.mean.cpu().numpy(), grid.cov.cpu().numpy(), voxel_size,
+        sensor_frame=True)
+
+
+def _host_voxel_stats(pts: np.ndarray, mask: np.ndarray,
+                      voxel_size: float):
+    """Numpy voxel count / mean / covariance of one scan (coordinates
+    about a zero origin, 10-bit packed like voxel.pack_keys): returns
+    (integer coords (V, 3), count, mean, cov), float32."""
+    half = 512
+    p = pts[mask]
+    g = np.floor(p / np.float32(voxel_size)).astype(np.int64) + half
+    ok = np.all((g >= 0) & (g < 1024), axis=1)
+    p, g = p[ok], g[ok]
+    keys = (g[:, 0] << 20) | (g[:, 1] << 10) | g[:, 2]
+    uk, inv, count = np.unique(keys, return_inverse=True,
+                               return_counts=True)
+    V = len(uk)
+    s1 = np.zeros((V, 3))
+    np.add.at(s1, inv, p)
+    mean = s1 / count[:, None]
+    d = p - mean[inv]
+    s2 = np.zeros((V, 3, 3))
+    np.add.at(s2, inv, d[:, :, None] * d[:, None, :])
+    cov = s2 / count[:, None, None]
+    coords = np.stack([(uk >> 20) & 1023, (uk >> 10) & 1023,
+                       uk & 1023], -1) - half
+    return coords, count.astype(np.float32), mean.astype(np.float32), \
+        cov.astype(np.float32)
 
 
 def extract_scan_posts_batch(pts: np.ndarray, mask: np.ndarray,

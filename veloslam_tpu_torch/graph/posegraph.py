@@ -18,6 +18,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from veloslam_tpu_torch.core import se3
+
 
 class GraphArrays(NamedTuple):
     """Device view of the graph (static shapes)."""
@@ -264,3 +266,10 @@ class PoseGraph:
             g.o_ok[:no] = d["o_ok"]
         g.n_obs = no
         return g
+
+
+def relative_pose_measurement(pose_a: se3.Pose, pose_b: se3.Pose):
+    """Z_ab = a⁻¹ ∘ b as numpy (quaternion, translation), the form
+    `PoseGraph.add_edge` takes."""
+    rel = se3.relative(pose_a, pose_b)
+    return rel.q.cpu().numpy(), rel.t.cpu().numpy()

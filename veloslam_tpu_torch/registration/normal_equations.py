@@ -13,7 +13,9 @@ correspondences (μ, n, hit):
 
 `gn_iteration` then takes the damped, guarded, clamped step and returns
 the new poses (`_gn_step`).  On the card both are one wrapper call of two
-launches (csrc/normal_equations.cu).
+launches (csrc/normal_equations.cu), whose arithmetic runs in float64 on
+the float32 inputs: it matches these functions evaluated in float64,
+which their float32 evaluation does not where b's terms cancel.
 
 Tensor placement picks the path: CPU tensors take the plain version
 (tests and CPU runs), CUDA tensors launch the kernel or raise.
@@ -180,7 +182,7 @@ def _launch(pts, q, t, mu, n, hit, huber_delta, max_dist, damping=None):
     k = max(1, -(-P // POINTS_PER_CHUNK))
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    partial = torch.empty((F, k, _N_SUMS), **f32)
+    partial = torch.empty((F, k, _N_SUMS), dtype=torch.float64, device=dev)
     H = torch.empty((F, 6, 6), **f32)
     b = torch.empty((F, 6), **f32)
     n_hit = torch.empty((F,), **i32)

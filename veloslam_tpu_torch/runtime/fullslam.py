@@ -223,6 +223,12 @@ class FullSlam(odo.StreamingOdometry):
         self.ensure_kf_capacity(est)
         super().run_device(pkts, times_us, track, batch=batch)
 
+    def descriptor_scores(self):
+        """(scores (K, K), shifts (K, K)) over the ring's K keyframe rows
+        (the trash row left out), on the engine's device: all-pairs place
+        recognition in one scancontext.descriptor_scores call."""
+        return sc.descriptor_scores(self.ring.desc[:self.ring.capacity])
+
     def finalize_device(self, *, min_score: float, radius: float,
                         min_gap: int, max_candidates: int,
                         use_scan_context: bool, gn_iterations: int,

@@ -699,7 +699,8 @@ class SlamPipeline:
                    on_ready=None, fast: bool = False) -> Dict:
         """Live acquisition: UDP LiDAR, INS and position-packet ingest
         until `duration_s` elapses or the stream is idle for
-        `idle_timeout_s` (counted from the end of the last processing).
+        `idle_timeout_s` (counted from the end of the last processing, and
+        first from when the ports are bound and `on_ready` has returned).
 
         HDL µs-into-hour stamps resolve against GPS UTC once a position
         packet carries a valid $GPRMC fix, else against the first INS
@@ -727,7 +728,6 @@ class SlamPipeline:
         pre_times: List[np.ndarray] = []
         first_ins_us: Optional[int] = None
         t_start = _time.monotonic()
-        last_rx = t_start
         stats = {"lidar_packets": 0, "ins_datagrams": 0,
                  "position_packets": 0, "batches": 0,
                  "batch_feed_ms_max": 0.0, "batch_feed_ms_sum": 0.0}
@@ -769,6 +769,9 @@ class SlamPipeline:
                                 C.POSITION_PACKET_BYTES) as pos_rx:
             if on_ready is not None:
                 on_ready()          # ports are bound; senders may start
+            # The idle window opens here: building the fast engine, binding
+            # the ports and on_ready may outlast it before any sender ran.
+            last_rx = _time.monotonic()
             while True:
                 if (duration_s is not None
                         and _time.monotonic() - t_start > duration_s):

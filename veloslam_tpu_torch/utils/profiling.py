@@ -1,6 +1,7 @@
-"""Per-stage wall-clock counters.
+"""Per-stage wall-clock counters and device traces.
 
-A copy of veloslam_tpu/utils/profiling.py::StageTimers.  Work on the card
+A copy of veloslam_tpu/utils/profiling.py::StageTimers, and its
+`device_trace` on torch.profiler.  Work on the card
 is queued asynchronously, so a stage's wall time is its enqueue time
 until something waits on the device; `sync` (e.g. torch.cuda.synchronize)
 is called at each stage's end, for runs that measure each stage's own
@@ -13,6 +14,8 @@ import contextlib
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Optional
+
+import torch
 
 
 class StageTimers:
@@ -45,3 +48,23 @@ class StageTimers:
                  f"total={v['total_s']:7.2f} s"
                  for k, v in self.summary().items()]
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]):
+    """Record the region's CPU activity, and the card's where CUDA is
+    available, into `log_dir` as a Chrome trace (trace.json, open it in
+    chrome://tracing or Perfetto); nothing when log_dir is None."""
+    if log_dir is None:
+        yield
+        return
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
