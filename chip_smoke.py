@@ -229,6 +229,16 @@ REG_KERNELS = ("fused_normal_equations", "gather_i32", "gather_rows8")
 # rows (2048 in the coarse pass): F x V = 1 << 20 (1 << 18) table rows,
 # seven key searches per point, one row per point.
 KERNEL_SHAPES = ((96, 16384), (128, 8192), (3, 1000), (1, 1))
+# The normal equations are also checked at the per-frame path's slot
+# counts and at the warm map's 56% and the VLP-16 bulk step's 1% hits
+# (F, P, hit rate), and timed at the bulk shapes of the three sensor
+# families (96, 50, 222 slots), closure verification's and the per-frame
+# path's.
+NE_EXTRA_CASES = ((1, 16384, 0.8), (8, 16384, 0.8), (96, 16384, 0.56),
+                  (222, 16384, 0.01))
+NE_TIMED_CASES = ((96, 16384, 0.8), (96, 16384, 0.56), (50, 16384, 0.8),
+                  (222, 16384, 0.8), (222, 16384, 0.01), (128, 8192, 0.8),
+                  (1, 16384, 0.8), (8, 16384, 0.8))
 # (table rows, indices): the Pallas probe's shapes
 # (scripts/bench_pallas_gather.py), the bulk path's (the 256x256x32
 # dilated index and the 65536-row map, 96 slots x 16384 points), closure
@@ -542,11 +552,15 @@ def _kernel_us(prof) -> float:
                if e.device_type == DeviceType.CUDA)
 
 
-def _device_us(fn, calls: int = 20, tries: int = 3) -> float:
-    """Device time per call of `fn()` in µs: the kernels torch.profiler
-    sees over `calls` back-to-back calls (host time excluded).  A trace
-    that caught no kernel (it happens on the card) is taken again, up to
-    `tries` times; 0 if none caught one."""
+def _device_us(fn, calls: int = 20, tries: int = 3, skip: str = "") -> float:
+    """Device time per call of `fn()` in µs, which launches each of its
+    kernels once a call: over `calls` back-to-back calls under
+    torch.profiler (host time excluded), each kernel's mean time a launch,
+    summed over the kernels but those whose name holds `skip`.  A mean a
+    launch is unchanged by a trace that lost some launches, as traces on
+    the card have been seen to.  A trace that caught no kernel is taken
+    again, up to `tries` times; 0 if none caught one."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -555,10 +569,31 @@ def _device_us(fn, calls: int = 20, tries: int = 3) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = _kernel_us(prof) / calls
+        us = sum(e.self_device_time_total / e.count
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not (skip and skip in e.key))
         if us > 0:
             return us
     return 0.0
+
+
+def _cold_events_ms(fn, flush, runs: int) -> float:
+    """Time of one call of `fn()` by CUDA events, each call after
+    `flush()` (outside the events; a flush that keeps the card busy
+    longer than the host takes to enqueue the call leaves no idle gap
+    inside them); the median of `runs` calls."""
+    times = []
+    for _ in range(runs):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def _bound(nbytes: float, flops: float = 0.0,
@@ -663,7 +698,9 @@ def _ne_inputs(F: int, P: int, seed: int, device, max_dist: float = 2.0,
     hits (n_hit ≤ 10: step rejected); slot 1's means sit at its posed
     points moved 1.5 m along x (its step is that translation, clamped to
     1 m); slot 2 has a NaN in a flagged point (H, b and err NaN, the
-    factor fails: step rejected)."""
+    factor fails: step rejected).  With F ≥ 5, slots 3 and 4 are
+    with_nan_slots' NaN in a point without a correspondence and NaN pose:
+    H and b NaN there too (w = 0 times a NaN J or r), steps rejected."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-60, 60, (F, P, 3))
     axis = rng.normal(size=(F, 3))
@@ -693,6 +730,10 @@ def _ne_inputs(F: int, P: int, seed: int, device, max_dist: float = 2.0,
         mu[1] = posed[1] + np.array([1.5, 0.0, 0.0])
         hit[2, 0] = 1
         pts[2, 0, 0] = np.nan
+    if edge_slots and F >= 5:
+        hit[3, 7] = 0
+        pts[3, 7, 1] = np.nan
+        q[4, 2] = np.nan
 
     def dev(a, dtype=np.float32):
         return torch.as_tensor(np.ascontiguousarray(a, dtype), device=device)
@@ -771,7 +812,9 @@ def _check_gn(F: int, P: int, args, damping: float = 1e-6,
     decisions exactly (and, with `edge_slots`, the expected ones of
     _ne_inputs' edge slots), n_hit exact,
     H, b and err at _check_ne's tolerances with NaNs counted equal, a
-    rejected slot's pose unchanged bitwise, two calls bitwise equal.  The
+    rejected slot's pose unchanged bitwise (but the q of the NaN-pose
+    edge slot, held, NaN entries included, to the float64 step below),
+    two calls bitwise equal.  The
     new pose is held within 1e-5 m and 1e-6 per quaternion component of
     the plain step taken in float64 from the kernel's own H, b and n_hit
     (the float32 H, b it returns): both solve the same 6×6 system in
@@ -797,14 +840,18 @@ def _check_gn(F: int, P: int, args, damping: float = 1e-6,
     if not torch.equal(got.step, ref.step):
         raise AssertionError(f"step decisions differ at {F}x{P}: "
                              f"{got.step.tolist()} vs {ref.step.tolist()}")
-    want = ([0, 2, 0] if F >= 3 else [0]) if edge_slots else []
+    want = (([0, 2, 0] + [0, 0] * (F >= 5) if F >= 3 else [0])
+            if edge_slots else [])
     if got.step[:len(want)].tolist() != want:
         raise AssertionError(f"edge slots at {F}x{P}: steps "
                              f"{got.step[:len(want)].tolist()}, want {want}")
     if not torch.equal(got.n_hit, ref.n_hit):
         raise AssertionError(f"gn_iteration n_hit differs at {F}x{P}")
     kept = got.step == 0
-    if not (_same_bits(got.pose.q[kept], q[kept])
+    kept_q = kept.clone()
+    if edge_slots and F >= 5:
+        kept_q[4] = False   # its NaN in q spreads through exp(0) ∘ q; t stays
+    if not (_same_bits(got.pose.q[kept_q], q[kept_q])
             and _same_bits(got.pose.t[kept], t[kept])):
         raise AssertionError(f"a rejected step moved the pose at {F}x{P}")
     errs = {"gn_H": _ne_diff("H", F, P, got.H, ref.H),
@@ -846,24 +893,32 @@ def phase_kernel(device) -> dict:
               flush=True)
         if (F, P) == KERNEL_SHAPES[0]:
             record["max_abs_err"] = max(errs["H"], errs["b"])
+    for F, P, rate in NE_EXTRA_CASES:
+        args = _ne_inputs(F, P, seed=F * 100003 + P, device=device,
+                          hit_rate=rate, edge_slots=True)
+        errs = {**_check_ne(F, P, args),
+                **_check_gn(F, P, args, edge_slots=F >= 3)}
+        print(f"[kernel] F={F} P={P} hits {rate:.0%} NE and GN step ok"
+              f"{', NaN slots NaN' if F >= 5 else ''}, bitwise repeatable; "
+              + " ".join(f"{k}={v:.3g}" for k, v in errs.items()),
+              flush=True)
     record.update(time_normal_equations(device))
     return record
 
 
 def time_normal_equations(device, step: bool = True) -> dict:
-    """Times of the normal-equations kernel at the paths' shapes (bulk
-    and closure verification), at chip_smoke's 80% hits and, for the bulk
-    shape, the warm map's 56% (PERF.md §4): NE-only, and with `step` the
-    whole GN step (gn_iteration, as the paths call it), each beside its
-    plain version.  No single PyTorch call computes the function: no
-    library time.  Returns the record's times, from the bulk shape at 80%
-    (the GN step; NE-only without `step`, which also times a tree whose
-    wrapper has no gn_iteration, for a comparison in one call)."""
+    """Times of the normal-equations kernel at NE_TIMED_CASES: NE-only,
+    and with `step` the whole GN step (gn_iteration, as the paths call
+    it), each beside its plain version, with the host's share of a call
+    (CUDA-event time less the profiler's device time).  No single PyTorch
+    call computes the function: no library time.  Returns the record's
+    times, from the bulk shape at 80% (the GN step; NE-only without
+    `step`, which also times a tree whose wrapper has no gn_iteration,
+    for a comparison in one call)."""
     from veloslam_tpu_torch.core import se3
     from veloslam_tpu_torch.registration import normal_equations as ne
     record = {}
-    for F, P, rate in (KERNEL_SHAPES[0] + (0.8,), KERNEL_SHAPES[0] + (0.56,),
-                       KERNEL_SHAPES[1] + (0.8,)):
+    for F, P, rate in NE_TIMED_CASES:
         args = _ne_inputs(F, P, seed=F * 100003 + P, device=device,
                           hit_rate=rate)
         pts, q, t, mu, n, hit = args
@@ -882,15 +937,17 @@ def time_normal_equations(device, step: bool = True) -> dict:
             print(f"[kernel] {mode} F={F} P={P} hits {rate:.0%}: kernel "
                   f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms "
                   f"per call (median of {TIMED_RUNS} runs of 10 calls); "
-                  f"device {dev_us:.2f} µs per call (profiler); bound "
+                  f"device {dev_us:.2f} µs per call (profiler), host "
+                  f"{times['ms'] * 1e3 - dev_us:.2f} µs; bound "
                   f"{bound_ms * 1e3:.2f} µs ({bound_by}), "
-                  f"{_share(bound_ms, dev_us)}", flush=True)
-            if (F, P, rate) == KERNEL_SHAPES[0] + (0.8,):
+                  f"{_share(bound_ms, dev_us)}; every byte of p, μ, n "
+                  f"{_bound(F * P * 37 + 248 * F)[0] * 1e3:.2f} µs",
+                  flush=True)
+            if (F, P, rate) == (96, 16384, 0.8):
                 record.update(times, bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=None)
     # What the card reads in practice: torch.sum over as many bytes as p,
-    # μ and n and the flags of the bulk shape, every sector of which the
-    # kernel reads when hits are scattered.
+    # μ and n and the flags of the bulk shape.
     F, P = KERNEL_SHAPES[0]
     x = torch.zeros(F * P * 37 // 4, dtype=torch.float32, device=device)
     print(f"[kernel] torch.sum over {x.numel() * 4 / 1e6:.1f} MB (p, μ, n "
@@ -899,36 +956,62 @@ def time_normal_equations(device, step: bool = True) -> dict:
     return record
 
 
+# Bytes read before each timed gather call, more than the card's 50 MB
+# L2: back to back, a call's output lines still in L2 were written again
+# by the next call without reaching device memory, which put the row
+# gather below the bound of the bytes it must write.
+L2_FLUSH_BYTES = 64 << 20
+# ~0.1 ms of spinning on the card after the flush, in which the host
+# enqueues the timed call.
+COLD_SPIN_CYCLES = 200_000
+
+
 def _time_gather(name: str, table, idx) -> dict:
     """Times of one gather kernel beside its plain version and the
     library call `torch.index_select(table, 0, idx)` (int32 idx; a
-    yardstick only, the port never calls it), and its bound: each index
+    yardstick only, the port never calls it), each call after a read of
+    L2_FLUSH_BYTES (left out of the times), and its bound: each index
     read, each output written, and each table row the indices touch read
     once (rows that L2 serves again are not counted)."""
     from veloslam_tpu_torch.registration import gather as ga
     kernel = getattr(ga, name)
     plain = getattr(ga, f"{name}_plain")
+    flush_buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                            device=idx.device)
 
     def library():
         return torch.index_select(table, 0, idx)
+
+    def flush():
+        flush_buf.sum()
+        torch.cuda._sleep(COLD_SPIN_CYCLES)
+
+    def cold(fn):
+        return lambda: (flush_buf.sum(), fn())
 
     m = idx.shape[0]
     row_bytes = table[:1].numel() * table.element_size()
     nbytes = m * (4 + row_bytes) + torch.unique(idx).numel() * row_bytes
     bound_ms, bound_by = _bound(nbytes)
-    out = {"ms": _events_ms(lambda: kernel(table, idx), TIMED_RUNS, 10),
-           "plain_ms": _events_ms(lambda: plain(table, idx), TIMED_RUNS, 10),
-           "library_ms": _events_ms(library, TIMED_RUNS, 10),
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    dev = {k: _device_us(fn) for k, fn in (
-        ("kernel", lambda: kernel(table, idx)),
-        ("plain", lambda: plain(table, idx)), ("library", library))}
+    calls = {"kernel": lambda: kernel(table, idx),
+             "plain": lambda: plain(table, idx), "library": library}
+    ms = {k: _cold_events_ms(fn, flush, TIMED_RUNS)
+          for k, fn in calls.items()}
+    out = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+           "library_ms": ms["library"], "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    # torch.sum's kernel (reduce_kernel) is the flush: left out.  Every
+    # kernel runs once a call (the plain version's two: the index cast and
+    # the indexing); a trace on the card has been seen to hold 1 of 20.
+    dev = {k: _device_us(cold(fn), skip="reduce_kernel")
+           for k, fn in calls.items()}
     rate = (f"{nbytes / dev['kernel'] / 1e3:.0f} GB/s"
             if dev["kernel"] > 0 else "no GB/s")
     out["line"] = (
         f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
         f"index_select {out['library_ms']:.4f} ms per call (median of "
-        f"{TIMED_RUNS} runs of 10 calls); device µs per call (profiler): "
+        f"{TIMED_RUNS} calls, each after a {L2_FLUSH_BYTES >> 20} MB read "
+        f"that leaves the L2 cold); device µs per call (profiler): "
         f"kernel {dev['kernel']:.2f} ({rate} of the {nbytes / 1e6:.1f} MB "
         f"it must move), plain {dev['plain']:.2f}, index_select "
         f"{dev['library']:.2f}; bound {bound_ms * 1e3:.2f} µs ({bound_by}), "

@@ -1,6 +1,6 @@
 """Launches and times of the PyTorch port's Gauss-Newton loop on one CUDA
-card: the fused step (`normal_equations.gn_iteration`, one kernel call of
-two launches) against the loop it replaced (the normal-equations kernel,
+card: the fused step (`normal_equations.gn_iteration`, one kernel launch)
+against the loop it replaced (the normal-equations kernel,
 then the damped solve, clamp and retraction as torch ops, `_gn_step`).
 
 Run from the repository root on a machine with an NVIDIA card:

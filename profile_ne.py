@@ -18,9 +18,10 @@ bench.py's drive, and the last call of one VLP-16 bulk step of 16384
 packets (chip_smoke._bulk_inputs) at 222 frame slots.  Then, in the order
 other, this, this, other, each tree in a process of its own (its package
 imported first): gn_iteration and NE-only ms per call (CUDA events over
-10 calls, median of chip_smoke.TIMED_RUNS) and device µs (torch.profiler)
-on chip_smoke._ne_inputs at 80% hits at PROFILED_SHAPES, beside
-chip_smoke._ne_bound; and on every recorded input, how far the kernel's b
+10 calls, median of chip_smoke.TIMED_RUNS), device µs (torch.profiler)
+and the host's µs a call (the two's difference) on chip_smoke._ne_inputs
+at PROFILED_SHAPES and HIT_RATES, beside chip_smoke._ne_bound; and on
+every recorded input, how far the kernel's b
 and the plain float32 version's b land from the plain version evaluated
 in float64, against chip_smoke's tolerance (1e-4·max|b| + 1e-3), and how
 far the kernel's pose lands from the float64 step on its own H, b
@@ -37,7 +38,9 @@ import sys
 REPO = os.path.dirname(os.path.abspath(__file__))
 INPUTS = os.path.join(REPO, "build", "profile_ne_inputs.pt")
 ORDER = ("other", "this", "this", "other")
-PROFILED_SHAPES = ((96, 16384), (50, 16384), (222, 16384), (128, 8192))
+PROFILED_SHAPES = ((96, 16384), (50, 16384), (222, 16384), (128, 8192),
+                   (1, 16384), (8, 16384))
+HIT_RATES = (0.8, 0.56, 0.01)
 
 
 def record_inputs(path: str) -> None:
@@ -111,9 +114,9 @@ def measure(tree: str, label: str, path: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     head = f"[profile_ne] {label} ({tree})"
-    for F, P in PROFILED_SHAPES:
+    for (F, P), rate in ((s, r) for s in PROFILED_SHAPES for r in HIT_RATES):
         pts, q, t, mu, n, hit = cs._ne_inputs(F, P, seed=F * 100003 + P,
-                                              device=dev, hit_rate=0.8)
+                                              device=dev, hit_rate=rate)
         pose = se3.Pose(q, t)
 
         def gn():
@@ -123,11 +126,15 @@ def measure(tree: str, label: str, path: str) -> None:
             return ne.fused_normal_equations(pts, q, t, mu, n, hit)
 
         bound_ms, by = cs._ne_bound(F, P, int(hit.sum()))
-        print(f"{head} F={F} P={P} 80% hits: GN "
-              f"{cs._events_ms(gn, cs.TIMED_RUNS, 10):.4f} ms, NE-only "
-              f"{cs._events_ms(ne_only, cs.TIMED_RUNS, 10):.4f} ms per call; "
-              f"device GN {cs._device_us(gn):.2f} µs, NE-only "
-              f"{cs._device_us(ne_only):.2f} µs; bound {bound_ms * 1e3:.2f} "
+        ms = {k: cs._events_ms(fn, cs.TIMED_RUNS, 10) * 1e3
+              for k, fn in (("GN", gn), ("NE", ne_only))}
+        us = {k: cs._device_us(fn)
+              for k, fn in (("GN", gn), ("NE", ne_only))}
+        print(f"{head} F={F} P={P} {rate:.0%} hits: GN {ms['GN']:.2f} µs, "
+              f"NE-only {ms['NE']:.2f} µs per call (events); device GN "
+              f"{us['GN']:.2f} µs, NE-only {us['NE']:.2f} µs; host GN "
+              f"{ms['GN'] - us['GN']:.2f} µs, NE-only "
+              f"{ms['NE'] - us['NE']:.2f} µs; bound {bound_ms * 1e3:.2f} "
               f"µs ({by})", flush=True)
     for source, calls in torch.load(path).items():
         worst = dict.fromkeys(("kernel_b", "f32_b", "over_b", "pose_t"),

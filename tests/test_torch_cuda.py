@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import normal_equation_slots, port_args, with_edge_slots
+from torch_helpers import (normal_equation_slots, port_args, with_edge_slots,
+                           with_nan_slots)
 from torch_helpers import small_threads  # noqa: F401
 from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.decode import calibration as cal
@@ -41,30 +42,18 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("F,P", [(96, 16384), (50, 16384), (222, 16384),
-                                 (3, 1000), (1, 1), (5, 0)])
-def test_kernel_matches_plain_on_card(card, F, P):
-    """Against the plain version evaluated in float64 on the same inputs
-    (the kernel's arithmetic is float64): |Δ| ≤ 1e-4·max|ref| + 1e-3 on H
-    and b, 1e-4 relative on the sums, n_hit exact, two launches bitwise
-    equal; LAUNCHES counts each."""
-    args = [a.to(card) for a in
-            port_args(*normal_equation_slots(F, P, seed=F + P))]
-    before = ne.LAUNCHES
-    got = ne.fused_normal_equations(*args)
-    again = ne.fused_normal_equations(*args)
-    torch.cuda.synchronize()
-    assert ne.LAUNCHES == before + 2
-    ref = ne.normal_equations_plain(
-        *(a.double() if a.is_floating_point() else a for a in args))
-    for a, b in zip(got, again):
-        assert torch.equal(a, b)
-    for x, r in zip(got[:2], ref[:2]):
-        lim = 1e-4 * (r.abs().max().item() if r.numel() else 0) + 1e-3
-        assert (x - r).abs().max().item() <= lim
-    for x, r in zip(got[2:4], ref[2:4]):
-        torch.testing.assert_close(x, r.float(), rtol=1e-4, atol=1e-6)
-    assert torch.equal(got[4], ref[4])
+# (F, P, hit rate, NaN slots): the bulk step's slot counts, the per-frame
+# path's (1, 8), ragged P, sparse and half hits, and with_nan_slots.
+NE_CASES = [(96, 16384, 0.8, False), (50, 16384, 0.8, False),
+            (222, 16384, 0.8, False), (1, 16384, 0.8, False),
+            (8, 16384, 0.8, True), (96, 16384, 0.01, True),
+            (96, 16384, 0.56, False), (3, 1000, 0.8, False),
+            (1, 1, 0.8, False), (5, 0, 0.8, False)]
+
+
+def _slots(F, P, rate, nan):
+    slots = normal_equation_slots(F, P, seed=F + P, hit_rate=rate)
+    return with_nan_slots(*slots) if nan else slots
 
 
 def _nan_equal_close(x, r, lim):
@@ -74,21 +63,59 @@ def _nan_equal_close(x, r, lim):
     assert ((x - r).abs()[~nan] <= lim).all()
 
 
-@pytest.mark.parametrize("F,P", [(96, 16384), (50, 16384), (222, 16384),
-                                 (128, 8192), (3, 1000), (3, 1001), (1, 1),
-                                 (5, 0)])
-def test_gn_iteration_matches_plain_on_card(card, F, P):
+def _ne_limit(r):
+    """1e-4·max|ref| + 1e-3 over the entries that are not NaN."""
+    finite = r[~torch.isnan(r)]
+    return 1e-4 * (finite.abs().max().item() if finite.numel() else 0) + 1e-3
+
+
+@pytest.mark.parametrize("F,P,rate,nan", NE_CASES)
+def test_kernel_matches_plain_on_card(card, F, P, rate, nan):
+    """Against the plain version evaluated in float64 on the same inputs:
+    |Δ| ≤ 1e-4·max|ref| + 1e-3 on H and b, 1e-4 relative on the sums,
+    NaN entries equal (with_nan_slots), n_hit exact, two launches bitwise
+    equal; LAUNCHES counts each."""
+    args = [a.to(card) for a in port_args(*_slots(F, P, rate, nan))]
+    before = ne.LAUNCHES
+    got = ne.fused_normal_equations(*args)
+    again = ne.fused_normal_equations(*args)
+    torch.cuda.synchronize()
+    assert ne.LAUNCHES == before + 2
+    ref = ne.normal_equations_plain(
+        *(a.double() if a.is_floating_point() else a for a in args))
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for x, r in zip(got[:2], ref[:2]):
+        _nan_equal_close(x.double(), r, _ne_limit(r))
+    for x, r in zip(got[2:4], ref[2:4]):
+        torch.testing.assert_close(x, r.float(), rtol=1e-4, atol=1e-6,
+                                   equal_nan=True)
+    assert torch.equal(got[4], ref[4])
+    if nan:                              # H, b, err_sum of slots 3, 4
+        assert all(torch.isnan(x[f]).any() for x in got[:3] for f in (3, 4))
+
+
+@pytest.mark.parametrize("F,P,rate,nan",
+                         NE_CASES[:-3] + [(128, 8192, 0.8, False),
+                                          (3, 1000, 0.8, False),
+                                          (3, 1001, 0.8, False),
+                                          (1, 1, 0.8, False),
+                                          (5, 0, 0.8, False)])
+def test_gn_iteration_matches_plain_on_card(card, F, P, rate, nan):
     """The fused step against gn_iteration_plain evaluated in float64 on
     the same inputs (P = 1001 and 1 take the kernel's scalar-load
     instance), with the edge slots of with_edge_slots (rejected for few
-    hits, clamped, NaN): decisions and n_hit exact; H, b at the NE
-    tolerance with NaNs equal; the pose within 1e-5 m / 1e-6 of the plain
-    float64 step on the kernel's own H, b (the same 6×6 system); a
-    rejected pose unchanged; two calls bitwise equal, one launch counted
+    hits, clamped, NaN) and of with_nan_slots (rejected): decisions and
+    n_hit exact; H, b at the NE tolerance with NaNs equal; the pose within
+    1e-5 m / 1e-6 of the plain float64 step on the kernel's own H, b (the
+    same 6×6 system); a rejected pose unchanged, but for a NaN q, which
+    comes out all NaN; two calls bitwise equal, one launch counted
     each."""
-    slots = normal_equation_slots(F, P, seed=F + P)
+    slots = normal_equation_slots(F, P, seed=F + P, hit_rate=rate)
     if F >= 3 and P:
         slots = with_edge_slots(*slots)
+    if nan:
+        slots = with_nan_slots(*slots)
     pts, q, t, mu, n, hit = [a.to(card) for a in port_args(*slots)]
     pose = se3.Pose(q, t)
     before = ne.LAUNCHES
@@ -108,18 +135,20 @@ def test_gn_iteration_matches_plain_on_card(card, F, P):
     assert torch.equal(got.step, ref.step)
     assert torch.equal(got.n_hit, ref.n_hit)
     if F >= 3 and P:
-        assert got.step[:3].tolist() == [0, 2, 0]
-    else:
+        want = [0, 2, 0] + ([0, 0] if nan else [])
+        assert got.step[:len(want)].tolist() == want
+    elif P == 0 or F < 3 and P < 11:
         assert got.step.tolist() == [0] * F
     for x, r in ((got.H, ref.H), (got.b, ref.b)):
-        finite = r[~torch.isnan(r)]
-        _nan_equal_close(x, r, 1e-4 * (finite.abs().max().item()
-                                       if finite.numel() else 0) + 1e-3)
+        _nan_equal_close(x.double(), r, _ne_limit(r))
     kept = got.step == 0
-    assert torch.equal(got.pose.q[kept], q[kept])
+    finite = torch.isfinite(q).all(dim=1)
+    # A NaN in q spreads through exp(0) ∘ q; t stays.
+    assert torch.equal(got.pose.q[kept & finite], q[kept & finite])
     assert torch.equal(got.pose.t[kept], t[kept])
-    assert (got.pose.t - own.t).abs().max().item() <= 1e-5
-    assert (got.pose.q - own.q).abs().max().item() <= 1e-6
+    assert torch.isnan(got.pose.q[~finite]).all()
+    _nan_equal_close(got.pose.t.double(), own.t, 1e-5)
+    _nan_equal_close(got.pose.q.double(), own.q, 1e-6)
 
 
 def test_normal_equations_reject_misaligned_on_card(card):

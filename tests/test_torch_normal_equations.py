@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from torch_helpers import (n, normal_equation_slots, port_args,  # noqa: F401
-                           small_threads, t, with_edge_slots)
+                           small_threads, t, with_edge_slots, with_nan_slots)
 from veloslam_tpu.core import se3 as jse3
 from veloslam_tpu.registration import gicp as jgicp
 from veloslam_tpu.registration.pallas_kernels import (TILE,
@@ -150,17 +150,166 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_kernel_source_matches_wrapper():
     """The .cu exports the symbol the wrapper binds, for sm_90a, and the
     launch's arguments match the ctypes signature: 6 inputs, F, P,
-    huber_delta, max_dist, chunk, 6 outputs of the normal equations,
-    damping, 4 outputs of the step, the stream."""
+    huber_delta, max_dist, chunk, the partial-sum scratch and the slots'
+    tickets, 5 outputs of the normal equations, damping, 4 outputs of the
+    step, the stream."""
     src = (_build.CSRC_DIR / "normal_equations.cu").read_text()
     m = re.search(r'extern "C" int veloslam_normal_equations\((.*?)\)',
                   src, re.S)
     assert m, "C entry point missing"
     args = [a.split()[-1].lstrip("*") for a in m.group(1).split(",")]
     assert args == ["pts", "q", "t", "mu", "nrm", "hit", "F", "P",
-                    "huber_delta", "max_dist", "chunk", "partial", "H", "b",
-                    "err_sum", "w_sum", "n_hit", "damping", "q_out", "t_out",
-                    "err", "step", "stream"]
+                    "huber_delta", "max_dist", "chunk", "partial", "tickets",
+                    "H", "b", "err_sum", "w_sum", "n_hit", "damping",
+                    "q_out", "t_out", "err", "step", "stream"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library_path("normal_equations").name.startswith(
         "normal_equations-")
+
+
+@pytest.mark.parametrize("P", [0, 1, 1000, 1001, 8192, 16384])
+@pytest.mark.parametrize("F", [1, 3, 8, 50, 96, 128, 222])
+def test_partition_covers_each_point_once(F, P, monkeypatch):
+    """The kernel's work items: k chunks a slot, item i covering points
+    [i·chunk, min(P, (i+1)·chunk)), cover each slot's P points exactly once
+    with no empty item (one item for P = 0), as do its threads' points
+    (_thread_points); the chunk is a multiple of 4
+    (the 16-byte loads); a few slots still give enough items to fill the
+    card; and the result is a function of (F, P) alone: the same with every
+    torch.cuda query made to raise."""
+    chunk, k = ne.partition(F, P)
+    assert chunk % 4 == 0 and chunk % ne.POINT_STEP == 0
+    assert 1 <= chunk // ne.POINT_STEP <= ne.MAX_STEPS
+    bounds = [(i * chunk, min(P, (i + 1) * chunk)) for i in range(k)]
+    covered = np.zeros(P, np.int64)
+    for lo, hi in bounds:
+        assert lo < hi or P == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all() and k == max(1, -(-P // chunk))
+    rows = ne._thread_points(P, chunk, k)         # normal_equations_mixed's
+    assert torch.equal(rows[rows < P].sort().values, torch.arange(P))
+    steps = max(1, -(-P // ne.POINT_STEP))
+    assert F * k >= min(ne.TARGET_ITEMS, F * steps)
+
+    def refuse(*a, **kw):
+        raise AssertionError("partition consulted the card")
+    for name in ("is_available", "device_count", "get_device_properties",
+                 "current_device"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    assert ne.partition.__wrapped__(F, P) == (chunk, k)
+
+
+def test_plain_nan_slots_match_gicp():
+    """The rule the kernel keeps: a NaN in a point without a
+    correspondence, or a NaN pose, makes the plain version's H and b NaN
+    (w = 0 times a NaN J or r) in the same entries as the JAX
+    gicp.normal_equations_fixed's, b wholly; the other slots stay finite
+    and agree at test_plain_matches_gicp_pallas_path_three_slots'
+    tolerances."""
+    F, P = 6, 700
+    pts, q, tr, mu, nrm, hit = with_nan_slots(
+        *normal_equation_slots(F, P, seed=11), first=3)
+    H, b, err, n_hit = _port_normal_equations(pts, q, tr, mu, nrm, hit)
+    H, b = n(H), n(b)
+    for f in range(F):
+        Hj, bj, ej, nj = jgicp.normal_equations_fixed(
+            jnp.asarray(pts[f]), jse3.Pose(jnp.asarray(q[f]),
+                                           jnp.asarray(tr[f])),
+            jnp.asarray(mu[f]), jnp.asarray(nrm[f]), jnp.asarray(hit[f]))
+        Hj, bj = np.asarray(Hj), np.asarray(bj)
+        np.testing.assert_array_equal(np.isnan(H[f]), np.isnan(Hj))
+        np.testing.assert_array_equal(np.isnan(b[f]), np.isnan(bj))
+        if f in (3, 4):
+            assert np.isnan(b[f]).all() and np.isnan(H[f]).any()
+            assert np.isnan(float(err[f])) and np.isnan(float(ej))
+        else:
+            assert np.isfinite(H[f]).all() and np.isfinite(b[f]).all()
+            np.testing.assert_allclose(H[f], Hj, rtol=1e-3, atol=0.5)
+            np.testing.assert_allclose(b[f], bj, rtol=1e-3, atol=0.05)
+            np.testing.assert_allclose(float(err[f]), float(ej), rtol=1e-4)
+        assert int(n_hit[f]) == int(nj)
+
+
+def _converged_slots(F, P, seed):
+    """Slots at their optimum, 60 m out: flagged residuals inside the Huber
+    radius with the J-space projected out, so b = Σ J r cancels to ~0 while
+    its terms reach tens (float32 inputs; the float64 evaluation of them
+    lands b at a few hundredths)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-60, 60, (F, P, 3))
+    ang = rng.uniform(-0.2, 0.2, F)
+    axis = rng.normal(size=(F, 3))
+    axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+    q = np.concatenate([np.cos(ang / 2)[:, None],
+                        np.sin(ang / 2)[:, None] * axis], 1)
+    tr = rng.normal(0, 2, (F, 3))
+    nrm = rng.normal(size=(F, P, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    u, w = q[:, None, 1:], q[:, None, :1]
+    uv = np.cross(u, pts)
+    posed = pts + 2.0 * (w * uv + np.cross(u, uv)) + tr[:, None]
+    hit = rng.random((F, P)) < 0.8
+    r = rng.normal(0, 0.05, (F, P))
+    for f in range(F):
+        J = np.concatenate([np.cross(posed[f], nrm[f]), nrm[f]], 1)[hit[f]]
+        rf = r[f, hit[f]]
+        r[f, hit[f]] = rf - J @ np.linalg.lstsq(J, rf, rcond=None)[0]
+    tangent = rng.normal(0, 0.3, (F, P, 3))
+    tangent -= np.sum(tangent * nrm, -1, keepdims=True) * nrm
+    mu = posed - nrm * r[..., None] + tangent
+    f32 = np.float32
+    return (pts.astype(f32), q.astype(f32), tr.astype(f32), mu.astype(f32),
+            nrm.astype(f32), hit)
+
+
+def test_mixed_precision_holds_the_check_where_float32_does_not():
+    """normal_equations_mixed, the kernel's precision (p′, r and b in
+    float64; H's terms in float32, summed in float32 by each thread and
+    each warp, in float64 across warps), lands within the card check's
+    tolerance of the float64 evaluation on slots at their optimum 60 m
+    out, where b's terms cancel: |Δ| ≤ 1e-4·max|ref| + 1e-3 on H and b,
+    1e-4 relative on the sums, n_hit exact.  The plain float32 evaluation
+    of the same inputs lands b outside that tolerance.  At 2, 96 and 222
+    slots, whose threads sum 4, 32 and 64 points each in float32 and
+    whose warps' float32 partials cover 128, 1024 and 2048; the plain
+    versions run 32 slots at a time (bounded memory)."""
+    P = 16384
+    for F, seed, per_thread in ((2, 12, 4), (96, 96, 32), (222, 222, 64)):
+        rows = ne._thread_points(P, *ne.partition(F, P))
+        assert rows.shape[1] == per_thread
+        args = port_args(*_converged_slots(F, P, seed=seed))
+        mixed = ne.normal_equations_mixed(*args)
+        ref, plain32 = [], []
+        for lo in range(0, F, 32):
+            part = [a[lo:lo + 32] for a in args]
+            ref.append(ne.normal_equations_plain(
+                *(a.double() if a.is_floating_point() else a for a in part)))
+            plain32.append(ne.normal_equations_plain(*part)[1])
+        ref = [torch.cat(x) for x in zip(*ref)]
+        plain32 = torch.cat(plain32)
+
+        def lim(r):
+            return 1e-4 * r.abs().max().item() + 1e-3
+        # b cancels: a few hundredths in a typical slot.
+        assert ref[1].abs().amax(dim=1).median().item() < 0.1
+        for x, r in zip(mixed[:2], ref[:2]):
+            assert (x.double() - r).abs().max().item() <= lim(r)
+        for x, r in zip(mixed[2:4], ref[2:4]):
+            torch.testing.assert_close(x, r.float(), rtol=1e-4, atol=1e-6)
+        assert torch.equal(mixed[4], ref[4])
+        assert (plain32.double() - ref[1]).abs().max().item() > lim(ref[1])
+
+
+def test_mixed_precision_keeps_the_plain_nans():
+    """normal_equations_mixed puts NaNs in the entries where the plain
+    version does (with_nan_slots), and matches it elsewhere."""
+    args = port_args(*with_nan_slots(*normal_equation_slots(6, 700, seed=13)))
+    ref = ne.normal_equations_plain(
+        *(a.double() if a.is_floating_point() else a for a in args))
+    got = ne.normal_equations_mixed(*args)
+    for x, r in zip(got[:4], ref[:4]):
+        nan = torch.isnan(r)
+        assert torch.equal(torch.isnan(x), nan)
+        lim = 1e-4 * r[~nan].abs().max().item() + 1e-3
+        assert (x.double() - r).abs()[~nan].max().item() <= lim
+    assert torch.equal(got[4], ref[4])

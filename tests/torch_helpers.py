@@ -33,10 +33,10 @@ def port_pose(p):
     return se3.Pose(t(p.q), t(p.t))
 
 
-def normal_equation_slots(F, P, seed, max_dist=2.0):
-    """Posed-scan inputs: points to 40 m, unit normals, ~80% hits, means
-    along the normal so residuals cover both Huber regimes and ~10% fail
-    the max_dist gate; none within 0.02 of max_dist (a threshold that
+def normal_equation_slots(F, P, seed, max_dist=2.0, hit_rate=0.8):
+    """Posed-scan inputs: points to 40 m, unit normals, `hit_rate` hits,
+    means along the normal so residuals cover both Huber regimes and ~10%
+    fail the max_dist gate; none within 0.02 of max_dist (a threshold that
     float32 rounding could put either way)."""
     rng = np.random.default_rng(seed)
     pts = rng.uniform(-40, 40, (F, P, 3))
@@ -59,7 +59,7 @@ def normal_equation_slots(F, P, seed, max_dist=2.0):
     tangent = rng.normal(0, 0.3, (F, P, 3))
     tangent -= np.sum(tangent * nrm, -1, keepdims=True) * nrm
     mu = posed - nrm * r[..., None] + tangent
-    hit = rng.random((F, P)) < 0.8
+    hit = rng.random((F, P)) < hit_rate
     f32 = np.float32
     return (pts.astype(f32), q.astype(f32), tr.astype(f32), mu.astype(f32),
             nrm.astype(f32), hit)
@@ -81,6 +81,18 @@ def with_edge_slots(pts, q, tr, mu, nrm, hit):
     mu[1] = posed + np.array([1.5, 0.0, 0.0])
     hit[2, 0] = True
     pts[2, 0, 0] = np.nan
+    return pts, q, tr, mu, nrm, hit
+
+
+def with_nan_slots(pts, q, tr, mu, nrm, hit, first=3):
+    """Slots `first` and `first` + 1 turned into the NaN cases of the
+    normal equations: a NaN in a point without a correspondence, and a
+    NaN pose.  The plain version's H and b are NaN there (w = 0 times a NaN
+    J or r), and the kernel's must be too."""
+    pts, q, hit = pts.copy(), q.copy(), hit.copy()
+    hit[first, 7] = False
+    pts[first, 7, 1] = np.nan
+    q[first + 1, 2] = np.nan
     return pts, q, tr, mu, nrm, hit
 
 

@@ -14,7 +14,7 @@ targets: loop-closure verification).  Each
 Gauss-Newton iteration with fixed correspondences is one
 `normal_equations.gn_iteration` call for all F slots: the fused normal
 equations, a damped 6×6 Cholesky solve, a step clamp and a left
-retraction, on the card one kernel call of two launches.
+retraction, on the card one kernel launch.
 The JAX original vmaps `register` over slots; here F is a batch axis
 throughout, and F stacked targets are leaves with a leading F.
 """

@@ -12,10 +12,12 @@ correspondences (μ, n, hit):
     n_hit = Σ hit;
 
 `gn_iteration` then takes the damped, guarded, clamped step and returns
-the new poses (`_gn_step`).  On the card both are one wrapper call of two
-launches (csrc/normal_equations.cu), whose arithmetic runs in float64 on
-the float32 inputs: it matches these functions evaluated in float64,
-which their float32 evaluation does not where b's terms cancel.
+the new poses (`_gn_step`).  On the card both are one wrapper call of one
+launch (csrc/normal_equations.cu), whose arithmetic keeps b exact to
+float32 rounding where its terms cancel (p′, r and the b sums in float64,
+H's per-thread terms in float32: `normal_equations_mixed`): it matches
+these functions evaluated in float64, which their float32 evaluation does
+not.
 
 Tensor placement picks the path: CPU tensors take the plain version
 (tests and CPU runs), CUDA tensors launch the kernel or raise.
@@ -26,6 +28,7 @@ show that its GN iterations went through it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -35,9 +38,15 @@ from veloslam_tpu_torch.core import se3
 
 LAUNCHES = 0          # kernel launches in this process (plain calls: none)
 
-# Points per work item of the kernel's partial pass.  Fixed, so the order
-# of the float sums (and the result) does not depend on the card.
-POINTS_PER_CHUNK = 4096
+# The kernel's work items (`partition`): a block of 256 threads takes
+# POINT_STEP points a step (4 a thread), an item 1 to MAX_STEPS steps of
+# one slot, and a call at least TARGET_ITEMS items where the slots have
+# that many steps, so that a few slots still spread over the card's SMs.
+# A function of (F, P) alone, so the order of the float sums (and the
+# result) does not depend on the card.
+POINT_STEP = 1024
+MAX_STEPS = 16
+TARGET_ITEMS = 192
 _N_SUMS = 30              # partial sums per work item (csrc kSums)
 
 
@@ -133,30 +142,109 @@ def gn_iteration_plain(pts, pose: se3.Pose, mu, n, hit, *,
                        step.to(torch.int32))
 
 
+@functools.lru_cache(maxsize=None)
+def partition(F: int, P: int) -> tuple:
+    """The kernel's work items for F slots of P points: (chunk, k), k =
+    ceil(P / chunk) ≥ 1 items a slot, item i covering points [i·chunk,
+    min(P, (i+1)·chunk)).  chunk is 1 to MAX_STEPS POINT_STEPs (a multiple
+    of 4).  A slot is cut into the fewest items that give F·k ≥
+    TARGET_ITEMS, of near-equal size: a few slots still fill the card,
+    and many slots stream long items with one reduction each."""
+    steps = max(1, -(-P // POINT_STEP))
+    k = min(steps, max(-(-TARGET_ITEMS // max(F, 1)),
+                       -(-steps // MAX_STEPS)))
+    chunk = -(-steps // k) * POINT_STEP
+    return chunk, max(1, -(-P // chunk))
+
+
+def _thread_points(P: int, chunk: int, k: int) -> torch.Tensor:
+    """The points of one slot that each of the kernel's threads sums in
+    float32, in its order: (k·256, n) indices into the slot's points, P
+    where a thread has none, a row a thread in the order (item, warp,
+    lane).  With P a multiple of 4, thread l of warp w
+    takes points 4l..4l+3 of the warp's 128 of each 1024-point step of
+    its item; otherwise point i of an item goes to thread i mod 256."""
+    idx = torch.arange(k * chunk).clamp(max=P)
+    if P % 4 == 0:
+        steps = chunk // POINT_STEP
+        idx = idx.reshape(k, steps, 8, 32, 4).permute(0, 2, 3, 1, 4)
+    else:
+        idx = idx.reshape(k, chunk // 256, 256).transpose(1, 2)
+    return idx.reshape(k * 256, -1)
+
+
+def normal_equations_mixed(pts, q, t, mu, n, hit, *, huber_delta=0.5,
+                           max_dist=2.0):
+    """The kernel's precision as a plain CPU function: p′, r, J and b's
+    terms w·J·r in float64 from the float32 inputs (b's terms cancel); w,
+    J and H's terms in float32, as are |r|·w and w, each summed in float32
+    by each of the kernel's threads over its own points, in its order
+    (`_thread_points` of `partition(F, P)`; H's terms fused as the
+    kernel's fmaf), then in float32 over each warp's 32 lanes in the
+    kernel's shuffle tree (a partial over 128 points a step: 128 to 2048),
+    and in float64 across warps and items.  Outputs float32, as the
+    kernel's: (H, b, err_sum, w_sum, n_hit)."""
+    F, P = hit.shape
+    rows = _thread_points(P, *partition(F, P))
+    H = torch.empty(F, 6, 6)
+    b = torch.empty(F, 6)
+    err_sum, w_sum = torch.empty(F), torch.empty(F)
+    n_hit = torch.empty(F, dtype=torch.int32)
+    for f in range(F):                  # a slot at a time: bounded memory
+        p = se3.apply(se3.Pose(q[f].double(), t[f].double()), pts[f].double())
+        nd = n[f].double()
+        r = torch.sum(nd * (p - mu[f].double()), dim=-1)
+        absr = torch.abs(r)
+        use = hit[f].to(torch.bool) & (absr < max_dist)
+        # w·r: r inside the Huber radius, ±huber outside; 0·r (NaN where r
+        # is) without a correspondence.
+        wr = torch.where(use, torch.where(
+            absr <= huber_delta, r,
+            torch.copysign(torch.full_like(r, huber_delta), r)), 0.0 * r)
+        cross = se3.cross(p, nd)
+        b[f] = (torch.cat([cross, nd], dim=-1) * wr[:, None]).sum(0).float()
+        arf = absr.float()
+        w = torch.where(use, torch.where(arf <= huber_delta, 1.0,
+                                         huber_delta / arf), 0.0)
+        e = torch.where(use, torch.clamp(arf, max=huber_delta), 0.0 * arf)
+        J = torch.cat([cross.float(), n[f]], dim=-1)               # (P, 6)
+        # fmaf(w·J_a, J_c, h): the product exact in float64, one rounding.
+        terms = torch.cat([((J * w[:, None]).double()[:, :, None]
+                            * J.double()[:, None, :]).reshape(P, 36),
+                           e.double()[:, None], w.double()[:, None]],
+                          dim=-1)                                  # (P, 38)
+        terms = torch.cat([terms, terms.new_zeros(1, 38)])[rows]
+        acc = torch.zeros(rows.shape[0], 38)
+        for i in range(rows.shape[1]):          # each thread's float32 sums
+            acc = (acc.double() + terms[:, i]).float()
+        lanes = acc.reshape(-1, 32, 38)         # (warps, lanes): the tree
+        for off in (16, 8, 4, 2, 1):
+            lanes = lanes[:, :off] + lanes[:, off:2 * off]
+        sums = lanes[:, 0].double().sum(dim=0)
+        H[f] = sums[:36].reshape(6, 6).float()
+        err_sum[f], w_sum[f] = sums[36].float(), sums[37].float()
+        n_hit[f] = use.sum()
+    return H, b, err_sum, w_sum, n_hit
+
+
 def _check_inputs(pts, q, t, mu, n, hit):
     F, P = hit.shape[0], hit.shape[-1]
-    want = {"pts": (pts, (F, P, 3), torch.float32),
-            "q": (q, (F, 4), torch.float32),
-            "t": (t, (F, 3), torch.float32),
-            "mu": (mu, (F, P, 3), torch.float32),
-            "n": (n, (F, P, 3), torch.float32),
-            "hit": (hit, (F, P), torch.uint8)}
-    for name, (x, shape, dtype) in want.items():
-        if tuple(x.shape) != shape:
+    dev = pts.device
+    f32 = torch.float32
+    for name, x, shape, dtype in (
+            ("pts", pts, (F, P, 3), f32), ("q", q, (F, 4), f32),
+            ("t", t, (F, 3), f32), ("mu", mu, (F, P, 3), f32),
+            ("n", n, (F, P, 3), f32), ("hit", hit, (F, P), torch.uint8)):
+        if x.shape != shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)}, want {shape}")
         if x.dtype != dtype:
             raise TypeError(f"{name}: dtype {x.dtype}, want {dtype}")
-        if x.device != pts.device:
-            raise ValueError(f"{name} on {x.device}, pts on {pts.device}")
+        if x.device != dev:
+            raise ValueError(f"{name} on {x.device}, pts on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if pts.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no normal-equations path for {pts.device}")
-    if pts.device.type == "cuda":
-        for name, x in (("pts", pts), ("mu", mu), ("n", n), ("hit", hit)):
-            if x.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned (the "
-                                 "kernel loads 16-byte vectors)")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no normal-equations path for {dev}")
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -166,53 +254,72 @@ def _kernel_lib() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         fn.argtypes = ([ptr] * 6 + [ctypes.c_int, ctypes.c_int,
                                     ctypes.c_float, ctypes.c_float,
-                                    ctypes.c_int] + [ptr] * 6
+                                    ctypes.c_int] + [ptr] * 7
                        + [ctypes.c_float] + [ptr] * 5)
         fn.restype = ctypes.c_int
     return lib
 
 
+# Per (device, stream): the kernel's tickets (one per slot, zero between
+# launches: the slot's last block resets its own) and partial-sum scratch,
+# grown as needed.  Launches on one stream run in order, so they share them.
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, stream: int, F: int, n_partial: int):
+    key = (dev.index, stream)
+    tickets, partial = _SCRATCH.get(key, (None, None))
+    if tickets is None or tickets.numel() < F:
+        tickets = torch.zeros(max(F, 256), dtype=torch.int32, device=dev)
+    if partial is None or partial.numel() < n_partial:
+        partial = torch.empty(max(n_partial, 1 << 16), dtype=torch.float64,
+                              device=dev)
+    _SCRATCH[key] = (tickets, partial)
+    return tickets, partial
+
+
 def _launch(pts, q, t, mu, n, hit, huber_delta, max_dist, damping=None):
-    """Both passes; with `damping` the finalize also takes the step.
+    """One launch; with `damping` the kernel also takes the step.
     Returns (H, b, err_sum, w_sum, n_hit), or with `damping` a
-    GnIteration."""
+    GnIteration: views of one float32 buffer."""
     global LAUNCHES
+    ptrs = [x.data_ptr() for x in (pts, q, t, mu, n, hit)]
+    for name, ptr in zip(("pts", "mu", "n", "hit"), ptrs[:1] + ptrs[3:]):
+        if ptr % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "loads 16-byte vectors)")
     F, P = hit.shape
     dev = pts.device
-    k = max(1, -(-P // POINTS_PER_CHUNK))
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    partial = torch.empty((F, k, _N_SUMS), dtype=torch.float64, device=dev)
-    H = torch.empty((F, 6, 6), **f32)
-    b = torch.empty((F, 6), **f32)
-    n_hit = torch.empty((F,), **i32)
-    if damping is None:
-        outs = (torch.empty((F,), **f32), torch.empty((F,), **f32))
-        step_outs = (None,) * 4
-        damping = 0.0
-    else:
-        outs = (None, None)
-        step_outs = (torch.empty((F, 4), **f32), torch.empty((F, 3), **f32),
-                     torch.empty((F,), **f32), torch.empty((F,), **i32))
+    # H, b, n_hit, then err_sum, w_sum or q, t, err, step (int32 as bits).
+    sizes = [36 * F, 6 * F, F] + ([F, F] if damping is None
+                                  else [4 * F, 3 * F, F, F])
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    parts = out.split_with_sizes(sizes)
     if F:
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        chunk, k = partition(F, P)
+        # torch's raw getter of the current stream's handle, which builds
+        # no Stream object (torch.cuda.current_stream does).
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        tickets, partial = _scratch(dev, stream, F, F * k * _N_SUMS)
+        o = [x.data_ptr() for x in parts]
+        if damping is None:
+            tail = [o[3], o[4], o[2], 0.0, None, None, None, None]
+        else:
+            tail = [None, None, o[2], float(damping), *o[3:]]
         rc = _kernel_lib().veloslam_normal_equations(
-            pts.data_ptr(), q.data_ptr(), t.data_ptr(), mu.data_ptr(),
-            n.data_ptr(), hit.data_ptr(), F, P, float(huber_delta),
-            float(max_dist), POINTS_PER_CHUNK, partial.data_ptr(),
-            H.data_ptr(), b.data_ptr(),
-            *(x.data_ptr() if x is not None else None for x in outs),
-            n_hit.data_ptr(), float(damping),
-            *(x.data_ptr() if x is not None else None for x in step_outs),
+            *ptrs, F, P, float(huber_delta), float(max_dist), chunk,
+            partial.data_ptr(), tickets.data_ptr(), o[0], o[1], *tail,
             stream)
         if rc != 0:
             raise RuntimeError(f"normal_equations kernel launch failed: "
                                f"cudaError {rc}")
         LAUNCHES += 1
-    if step_outs[0] is None:
-        return (H, b, *outs, n_hit)
-    q_out, t_out, err, step = step_outs
-    return GnIteration(se3.Pose(q_out, t_out), H, b, err, n_hit, step)
+    H, b = parts[0].view(F, 6, 6), parts[1].view(F, 6)
+    n_hit = parts[2].view(torch.int32)
+    if damping is None:
+        return H, b, parts[3], parts[4], n_hit
+    return GnIteration(se3.Pose(parts[3].view(F, 4), parts[4].view(F, 3)),
+                       H, b, parts[5], n_hit, parts[6].view(torch.int32))
 
 
 def fused_normal_equations(pts, q, t, mu, n, hit, *, huber_delta=0.5,
