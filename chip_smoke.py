@@ -64,14 +64,24 @@ code is non-zero:
                 graph solve, the tiled map) with bench.py's full-SLAM
                 config, against the JAX package's golden
                 (tests/fixtures/pipeline_golden_seed3.npz): a warm run and
-                3 measured runs, each checked (frames and times,
+                2 measured runs, each checked (frames and times,
                 keyframes, closure pairs, trajectory, landmark counts,
-                ATE) with its launches counted, all 3 equal to the bit
+                ATE) with its launches counted, both equal to the bit
                 (trajectory, keyframes, closures, landmarks, map counts);
                 pipeline frames/s as
                 bench.py::run_full_slam defines it; then one run that
                 synchronizes at each stage's end, for the stage seconds.
-  8. per_frame — slam_run's default mode: the same pcap + INS log
+  8. bench    — bench_torch.py's stages but the live sweep: the bulk step
+                on _bulk_inputs' arrays from a warm map and, in turns,
+                from the empty map (its launches: 16 normal-equations,
+                2 of each gather a step), the primitive rates and the roofline
+                (every fraction at most 1.05), the full-SLAM stage on
+                bench.py's 20 s drive (run_offline_batched + finalize())
+                against the JAX golden (tests/fixtures/
+                bench_golden_seed3.npz: frames, times and keyframes equal,
+                closures equal or within 2%, trajectory, ATE), and the
+                headline record parsed back.
+  9. per_frame — slam_run's default mode: the same pcap + INS log
                 through SlamPipeline(device="cuda").run_offline +
                 finalize() (512-packet batches; per frame the ROI's dense
                 index, 16 GN iterations on 16384 points, the map
@@ -92,7 +102,7 @@ code is non-zero:
                 a checkpoint round trip; frames/s; then one run that
                 synchronizes at each stage's end, for the stage seconds
                 and the synchronizing operations by call site.
-  9. paths    — the paths ported last, against the JAX golden
+  10. paths    — the paths ported last, against the JAX golden
                 (tests/fixtures/paths_golden_seed3.npz): the per-frame
                 pipeline of phase per_frame with registration method
                 "d2d" and then "ndt" (a warm run whose kernel inputs are
@@ -112,7 +122,7 @@ code is non-zero:
                 with use_dense_index=False with phase pipeline's gates;
                 every kernel held against its plain version on these
                 paths' own inputs and timed at their first shape.
-  10. live    — SlamPipeline.run_online on bench.py's drive at the
+  11. live    — SlamPipeline.run_online on bench.py's drive at the
                 production width (512-packet batches), against the JAX
                 golden (tests/fixtures/live_golden_seed3.npz): the
                 golden's session through the scripted receiver
@@ -130,27 +140,27 @@ code is non-zero:
                 at 100 Hz): fast at 1x and 2x, per frame at 1x, none lost
                 or dropped, sustained pkt/s and the batch feed time beside
                 the batch period.
-  11. apps    — slam_run (per frame) with --bev and --checkpoint-dir on
+  12. apps    — slam_run (per frame) with --bev and --checkpoint-dir on
                 the drive's pcap, inspect --checkpoint (every frame
                 fetched, 0 failures) and inspect --pcap --frame 3 with
                 every dump (point counts equal the frame's), and
                 extract_landmarks on the checkpoint map's largest patch
                 on the card against a CPU run.
-  12. pcg     — solve_pcg at K = 16384 (16000 poses) and
+  13. pcg     — solve_pcg at K = 16384 (16000 poses) and
                 solve_pcg_landmarks at K = 4096 alone, at the production
                 8 GN x 96 CG iterations, twice each, against the JAX
                 golden (tests/fixtures/pcg_golden.npz) and the JAX tests'
                 gates; time, launches, syncs and their call sites, peak
                 memory; the device finalize's proposal and solve at the
                 keyframe ring's cap of 16384.
-  13. long_drive — tests/test_fullslam.py's unbounded session (44 s at
+  14. long_drive — tests/test_fullslam.py's unbounded session (44 s at
                 3600 rpm, ~2640 keyframes in a 4096-row ring, every solve
                 on PCG) once through SlamPipeline on the card, every stage
                 synchronized, against the JAX golden
                 (tests/fixtures/long_drive_golden_seed3.npz); the chain
                 kernel must launch in the device finalize and in the
                 landmark solve.
-  14. multichip — the multi-device slice (veloslam_tpu_torch/parallel/,
+  15. multichip — the multi-device slice (veloslam_tpu_torch/parallel/,
                 the port of __graft_entry__.py::dryrun_multichip), every
                 rank a process spawned with the "spawn" start method:
                 world 1 over NCCL held to the single-process functions on
@@ -168,7 +178,7 @@ code is non-zero:
                 apps/scaling_bench at 1 (NCCL) and 2 (Gloo) ranks; the
                 registration kernels held against their plain versions on
                 the sharded path's and the session's own inputs.
-  15. models  — the two other sensor families, the HDL-64 (with a
+  16. models  — the two other sensor families, the HDL-64 (with a
                 per-unit calibration file, db.xml, written by the port's
                 to_xml and read through SensorConfig.calibration_path) and
                 the VLP-16, against the JAX golden
@@ -186,7 +196,8 @@ code is non-zero:
                 at the bulk step's shapes with its device µs beside the
                 bound.
 Then one JSON line with the kernel records (launches: one pipeline run,
-the chain kernel's one long-drive run; per_frame_launches: one per_frame
+the chain kernel's one long-drive run; bench_launches: one bulk step and
+the 20 s full-SLAM run of phase bench; per_frame_launches: one per_frame
 run; per_frame_max_abs_err: the largest |Δ| from the plain version on the
 per_frame path's own inputs; paths_launches and paths_max_abs_err: the
 same for each part of phase paths; live_launches and live_max_abs_err:
@@ -201,6 +212,7 @@ result line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -221,6 +233,8 @@ FULLSLAM_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                "fullslam_golden_seed3.npz")
 PIPELINE_GOLDEN = os.path.join(REPO, "tests", "fixtures",
                                "pipeline_golden_seed3.npz")
+BENCH_GOLDEN = os.path.join(REPO, "tests", "fixtures",
+                            "bench_golden_seed3.npz")
 KERNEL_SOURCES = ("normal_equations", "gather", "chain")
 # The registration kernels, which every SLAM path launches.
 REG_KERNELS = ("fused_normal_equations", "gather_i32", "gather_rows8")
@@ -253,7 +267,7 @@ GATHER_RECORDED = {"gather_i32": (1 << 21, 1572864),
                    "gather_rows8": (65536, 1572864)}
 TIMED_RUNS = 20
 FULLSLAM_RUNS = 5
-PIPELINE_RUNS = 3
+PIPELINE_RUNS = 2
 # The card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s, and float32 and float64 FLOP/s outside the
 # tensor cores.  A kernel's bound is the larger of the bytes it must move
@@ -1122,27 +1136,13 @@ def phase_drive(device, gold, cfg: dict) -> dict:
 
 def _bulk_inputs(device, batch_packets: int = 16384, model: str = "hdl32",
                  calib=None):
-    """bench.py's bulk inputs, built with the port's simulator: a 0.35 s
-    drive of `model` (simulated with `calib`, else its built-in table)
-    tiled to `batch_packets` at the model's packet rate, a 64-sample
-    straight-line INS window."""
-    from veloslam_tpu_torch.io import simulate as sim
-    from veloslam_tpu_torch.runtime.odometry import packets_per_second
-    seq = sim.generate_sequence(duration_s=0.35, model=model, seed=0,
-                                world=sim.World.demo(1), calib=calib)
-    pkts = np.concatenate([seq["packets"]] * (
-        batch_packets // len(seq["packets"]) + 1))[:batch_packets]
-    rel_s = (np.arange(batch_packets) / packets_per_second(model)
-             ).astype(np.float32)
-    m = 64
-    track_rel = np.linspace(-0.1, rel_s[-1] + 0.1, m).astype(np.float32)
-    track_q = np.zeros((m, 4), np.float32)
-    track_q[:, 0] = 1.0
-    track_t = np.stack([5.0 * track_rel, np.zeros(m), np.full(m, 2.0)],
-                       -1).astype(np.float32)
-    track_v = np.tile(np.array([5.0, 0, 0], np.float32), (m, 1))
-    return [torch.as_tensor(a, device=device)
-            for a in (pkts, rel_s, track_rel, track_q, track_t, track_v)]
+    """bench.py's bulk inputs, built with the port's simulator
+    (bench_torch._host_inputs): a 0.35 s drive of `model` (simulated with
+    `calib`, else its built-in table) tiled to `batch_packets` at the
+    model's packet rate, a 64-sample straight-line INS window."""
+    import bench_torch
+    return [torch.as_tensor(a, device=device) for a in
+            bench_torch._host_inputs(0, batch_packets, model, calib)]
 
 
 def phase_bulk(device, smi: str, reg: dict) -> None:
@@ -1223,10 +1223,7 @@ def _fullslam_drive(device, drive: dict, model: str):
     from veloslam_tpu_torch.decode.decode import DeviceCalib
     from veloslam_tpu_torch.io import simulate as sim
     from veloslam_tpu_torch.runtime.fullslam import FullSlam
-    seq = sim.generate_sequence(
-        duration_s=drive["duration_s"], model=model, seed=drive["seed"],
-        world=sim.World.demo(**drive["world"]),
-        trajectory=sim.circle_trajectory(**drive["circle"]))
+    seq = simulate_drive(drive, model)
     track = sim.truth_track(seq, drift_rate=drive["drift_rate"])
 
     def engine():
@@ -1419,6 +1416,41 @@ def _check_fullslam(host, eng, seq, drive, gold, launches, device,
           f"{float(g('ate_raw_ins')):.3f}, limit {limit:.4f})", flush=True)
 
 
+# Sequences of the golden drives, simulated once per process: phases
+# fullslam, pipeline, per_frame, paths, live, apps and multichip all
+# replay bench.py's 7 s drive (~10 s of host simulation each time).
+# SIM_SECONDS: seconds spent simulating, and seconds a reuse saved.
+_SEQUENCES = {}
+SIM_SECONDS = {"simulated": 0.0, "saved": 0.0}
+
+
+def simulate_drive(drive: dict, model: str, calib=None) -> dict:
+    """sim.generate_sequence of a golden drive (on its circle, or with
+    "circle": None the simulator's default trajectory; with `calib`, a
+    LaserCalib, else the model's built-in table).  Drives with the
+    built-in table are simulated once and the same arrays returned to
+    every caller, which only reads them."""
+    from veloslam_tpu_torch.io import simulate as sim
+    circle = drive.get("circle")
+    key = json.dumps([drive["duration_s"], model, drive["seed"],
+                      drive["world"], circle], sort_keys=True)
+    if calib is None and key in _SEQUENCES:
+        seq, secs = _SEQUENCES[key]
+        SIM_SECONDS["saved"] += secs
+        return seq
+    t0 = time.perf_counter()
+    seq = sim.generate_sequence(
+        duration_s=drive["duration_s"], model=model, seed=drive["seed"],
+        world=sim.World.demo(**drive["world"]),
+        trajectory=sim.circle_trajectory(**circle) if circle else None,
+        calib=calib)
+    secs = time.perf_counter() - t0
+    SIM_SECONDS["simulated"] += secs
+    if calib is None:
+        _SEQUENCES[key] = seq, secs
+    return seq
+
+
 def write_pipeline_drive(drive: dict, model: str, out_dir: str,
                          calib=None):
     """A golden drive as bench.py::_make_drive writes it, with the port's
@@ -1428,12 +1460,7 @@ def write_pipeline_drive(drive: dict, model: str, out_dir: str,
     1 s) and INS log, the INS positions drifted in +y."""
     from veloslam_tpu_torch.io import packets as pk
     from veloslam_tpu_torch.io import simulate as sim
-    circle = drive.get("circle")
-    seq = sim.generate_sequence(
-        duration_s=drive["duration_s"], model=model, seed=drive["seed"],
-        world=sim.World.demo(**drive["world"]),
-        trajectory=sim.circle_trajectory(**circle) if circle else None,
-        calib=calib)
+    seq = simulate_drive(drive, model, calib)
     paths = sim.write_sequence(seq, out_dir, name=drive["name"])
     ins = pk.read_ins_txt(paths["ins"])
     ts = (ins["t_us"] - ins["t_us"][0]) * 1e-6
@@ -1643,6 +1670,147 @@ def _check_pipeline(pipe, res, seq, gold, name, launches, fullslam_launches,
           f"{count / float(g('map_count')) - 1:+.2e} relative to the "
           f"golden's; 2-D ATE {rmse:.4f} m (golden {float(g('ate')):.4f}, "
           f"limit {limit:.4f})", flush=True)
+
+
+def phase_bench(device, smi: str, reg: dict) -> dict:
+    """bench_torch.py's stages on the card but the live sweep (phase live
+    runs live mode): the bulk step from a warm map on _bulk_inputs' arrays
+    with its launches counted, the primitive rates and the roofline
+    (every fraction at most 1.05), the full-SLAM stage on bench.py's 20 s
+    drive against the JAX golden (tests/fixtures/bench_golden_seed3.npz),
+    and the headline record.  `reg`: the production registration config,
+    which bench_torch's constants must equal.  Returns the launches of one
+    bulk step and of the full-SLAM run."""
+    import bench_torch as bt
+    consts = {"reg_points": bt.REG_POINTS,
+              "reg_iterations": bt.REG_ITERATIONS,
+              "reassociate_every": bt.REASSOCIATE_EVERY,
+              "map_capacity": bt.MAP_CAPACITY, "voxel_size": bt.VOXEL_SIZE}
+    if any(reg[k] != v for k, v in consts.items()):
+        raise AssertionError(f"bench: bench_torch's config {consts} is not "
+                             f"the production one {reg}")
+    inputs = bt._build_inputs(device=device)
+    arrays = [x for k, x in enumerate(inputs) if k != 1]
+    if not all(torch.equal(a, b) for a, b in zip(arrays,
+                                                  _bulk_inputs(device))):
+        raise AssertionError("bench: bulk inputs differ from _bulk_inputs'")
+    _reset_launches()
+    bulk = bt.run_bulk(inputs=inputs, device=device, empty_map_too=True)
+    got = _launches()
+    blocks = -(-bt.REG_ITERATIONS // bt.REASSOCIATE_EVERY)
+    per_step = {"fused_normal_equations": bt.REG_ITERATIONS,
+                "gather_i32": blocks, "gather_rows8": blocks}
+    _check_launches(f"bench bulk ({bulk['steps']} steps)", got,
+                    {k: v * bulk["steps"] for k, v in per_step.items()},
+                    device)
+    print(f"[bench] bulk step from a warm map: {bulk['ms']:.3f} ms/batch "
+          f"(median of {len(bulk['ms_runs'])}, spread "
+          f"{bulk['ms_spread'][0]:.3f}-{bulk['ms_spread'][1]:.3f}), "
+          f"{bulk['frames_per_s']:.1f} frames/s; from the empty map, in "
+          f"turns with it, {bulk['ms_from_empty_map']:.3f} ms (spread "
+          f"{bulk['ms_from_empty_map_spread'][0]:.3f}-"
+          f"{bulk['ms_from_empty_map_spread'][1]:.3f}); launches {got} over "
+          f"{bulk['steps']} steps; {smi}", flush=True)
+    card = bt.device_info(device)
+    rates = bt.primitive_rates(device)
+    roof = bt.run_roofline(bulk["ms"], rates, card)
+    print(f"[bench] rates GB/s "
+          f"{ {k: round(v['gb_per_s'], 1) for k, v in rates.items()} }; "
+          f"roofline: {roof['bytes_per_batch_MB']} MB, HBM floor "
+          f"{roof['hbm_floor_ms']} ms, primitive floor "
+          f"{roof['primitive_floor_ms']} ms "
+          f"{roof['primitive_floor_terms_ms']}, fractions "
+          f"{roof['fraction_of_primitive_floor']} / "
+          f"{roof['fraction_of_hbm_floor']}", flush=True)
+
+    gold = np.load(BENCH_GOLDEN)
+    cfg = json.loads(str(gold["config"]))
+    drive = cfg["drives"][0]
+    slam = dataclasses.asdict(bt._slam_cfg())
+    slam.pop("mesh")
+    if json.loads(json.dumps(slam)) != drive["slam"]:
+        raise AssertionError("bench: bench_torch._slam_cfg() is not the "
+                             "golden's config")
+    seen = {}
+
+    def check(pipe, res, seq):
+        seen["launches"] = _launches()
+        _check_bench_full(pipe, res, seq, gold, seen["launches"], device)
+
+    _reset_launches()
+    fs = bt.run_full_slam(duration_s=drive["duration_s"],
+                          batch=drive["batch"], warm_s=0, device=device,
+                          check=check)
+    print(f"[bench] full SLAM on bench.py's {drive['duration_s']:.0f} s "
+          f"drive: {fs}; launches {seen['launches']}; {smi}", flush=True)
+    rec = json.loads(json.dumps(bt.headline(bulk["frames_per_s"], {
+        "bulk_ms_per_batch": bulk["ms"], "full_slam": fs,
+        "roofline": roof, "device": card})))
+    if not (rec["metric"] == "hdl32_bulk_odometry_frames_per_s_per_chip"
+            and np.isfinite(rec["value"]) and rec["value"] > 0):
+        raise AssertionError(f"bench: bad headline record {rec}")
+    print(f"[bench] headline {rec['metric']} = {rec['value']} "
+          f"{rec['unit']}, vs_baseline {rec['vs_baseline']}", flush=True)
+    return {"bulk_step": {k: v // max(bulk["steps"], 1)
+                          for k, v in got.items()},
+            "full_slam_20s": seen["launches"]}
+
+
+def _check_bench_full(pipe, res, seq, gold, launches, device) -> None:
+    """bench.py's 20 s full-SLAM run against the JAX golden: frames and
+    times, keyframes and their times equal; closures equal as sets, or
+    their count within 2% (the long drive's gate); trajectory within 5 cm
+    in x, y and Z_LIMIT_M in z; 2-D ATE at most the golden's + 0.02 m;
+    the registration kernels launched, the chain kernel not (at most 2048
+    keyframes: dense solves)."""
+    from veloslam_tpu_torch.runtime.evaluate import ate, interpolate_positions
+
+    def g(k):
+        return gold[f"full_{k}"]
+
+    n = res["n_frames"]
+    if n != int(g("n_frames")) or not np.array_equal(res["times_us"],
+                                                     g("times_us")):
+        raise AssertionError(f"bench: {n} frames / times differ from the "
+                             f"golden's {int(g('n_frames'))}")
+    if res["n_keyframes"] != int(g("n_keyframes")) or not np.array_equal(
+            res["keyframe_times_us"], g("keyframe_times_us")):
+        raise AssertionError(f"bench: {res['n_keyframes']} keyframes / "
+                             f"times, golden {int(g('n_keyframes'))}")
+    got = set(pipe.closures)
+    want = set(map(tuple, g("closures").tolist()))
+    if got != want and not abs(len(got) - len(want)) <= 0.02 * len(want):
+        raise AssertionError(f"bench: {len(got)} closures, golden "
+                             f"{len(want)} (more than 2% apart)")
+    pos = res["positions"]
+    if not (np.isfinite(pos).all() and np.isfinite(res["quaternions"]).all()):
+        raise AssertionError("bench: non-finite trajectory")
+    off = float(np.linalg.norm(pos[:, :2] - g("positions")[:, :2],
+                               axis=1).max())
+    off_z = float(np.abs(pos[:, 2] - g("positions")[:, 2]).max())
+    if not (off <= 0.05 and off_z <= Z_LIMIT_M):
+        raise AssertionError(f"bench: trajectory {off} m from the JAX "
+                             f"golden in x, y, {off_z} m in z")
+    truth = interpolate_positions(res["times_us"], seq["ins_t_us"],
+                                  seq["ins_pos"])
+    rmse = ate(pos[:, :2], truth[:, :2], align=False)["rmse"]
+    limit = float(g("ate")) + 0.02
+    if not rmse <= limit:
+        raise AssertionError(f"bench: ATE {rmse} m > {limit} m")
+    if device.type == "cuda":
+        if not all(launches[k] for k in REG_KERNELS):
+            raise AssertionError(f"bench: a kernel was not launched: "
+                                 f"{launches}")
+        if launches["chain_factor"] or launches["chain_solve"]:
+            raise AssertionError(f"bench: the chain kernel launched below "
+                                 f"the dense bound: {launches}")
+    print(f"[bench] full: {n} frames, {res['n_keyframes']} keyframes equal "
+          f"to the JAX golden's; closures {len(got)} (golden {len(want)}, "
+          f"{len(got - want)} not in it, {len(want - got)} missing); "
+          f"trajectory max {off:.2e} m from it in x, y, {off_z:.2e} m in z; "
+          f"landmarks {res['n_landmarks']} (golden "
+          f"{int(g('n_landmarks'))}); 2-D ATE {rmse:.4f} m (golden "
+          f"{float(g('ate')):.4f}, limit {limit:.4f})", flush=True)
 
 
 def run_perframe(paths: dict, drive: dict, device, timers=None) -> tuple:
@@ -3860,10 +4028,7 @@ def write_multihost_drive(drive: dict, model: str, out_dir: str):
     if drive["drift_rate"]:
         return write_pipeline_drive(drive, model, out_dir)
     from veloslam_tpu_torch.io import simulate as sim
-    seq = sim.generate_sequence(
-        duration_s=drive["duration_s"], model=model, seed=drive["seed"],
-        world=sim.World.demo(**drive["world"]),
-        trajectory=sim.circle_trajectory(**drive["circle"]))
+    seq = simulate_drive(drive, model)
     return sim.write_sequence(seq, out_dir, name=drive["name"]), seq
 
 
@@ -4351,28 +4516,47 @@ def phase_models(device, smi: str, reg: dict, name: str = "full") -> tuple:
     return launches, worst
 
 
+def _timed(name: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall seconds printed as phase `name`'s."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
+    t0 = time.perf_counter()
     smi = phase_device()
     device = torch.device("cuda", 0)
-    phase_build()
-    record = phase_kernel(device)
-    gather_records = phase_gather(device)
-    chain_record = phase_chain(device)
+    _timed("build", phase_build)
+    record = _timed("kernel", phase_kernel, device)
+    gather_records = _timed("gather", phase_gather, device)
+    chain_record = _timed("chain", phase_chain, device)
     gold = np.load(GOLDEN)
     cfg = json.loads(str(gold["config"]))
-    drive_launches = phase_drive(device, gold, cfg)
+    drive_launches = _timed("drive", phase_drive, device, gold, cfg)
     print(f"[drive] launches over both drives: {drive_launches}", flush=True)
-    phase_bulk(device, smi, cfg["odometry"])
-    fullslam_launches = phase_fullslam(device, smi)
-    launches = phase_pipeline(device, smi, fullslam_launches)
-    perframe_launches, perframe_errs = phase_per_frame(device, smi)
-    paths_launches, paths_errs = phase_paths(device, smi)
-    live_launches, live_errs = phase_live(device, smi)
-    phase_apps(device, smi)
-    phase_pcg(device, smi)
-    long_launches = phase_long_drive(device, smi)
-    multichip_launches, multichip_errs = phase_multichip(device, smi)
-    models_launches, models_errs = phase_models(device, smi, cfg["odometry"])
+    _timed("bulk", phase_bulk, device, smi, cfg["odometry"])
+    fullslam_launches = _timed("fullslam", phase_fullslam, device, smi)
+    launches = _timed("pipeline", phase_pipeline, device, smi,
+                      fullslam_launches)
+    bench_launches = _timed("bench", phase_bench, device, smi,
+                            cfg["odometry"])
+    perframe_launches, perframe_errs = _timed("per_frame", phase_per_frame,
+                                              device, smi)
+    paths_launches, paths_errs = _timed("paths", phase_paths, device, smi)
+    live_launches, live_errs = _timed("live", phase_live, device, smi)
+    _timed("apps", phase_apps, device, smi)
+    _timed("pcg", phase_pcg, device, smi)
+    long_launches = _timed("long_drive", phase_long_drive, device, smi)
+    multichip_launches, multichip_errs = _timed("multichip", phase_multichip,
+                                                device, smi)
+    models_launches, models_errs = _timed("models", phase_models, device,
+                                          smi, cfg["odometry"])
+    print(f"[time] all phases: {time.perf_counter() - t0:.1f} s; golden "
+          f"drives simulated in {SIM_SECONDS['simulated']:.1f} s, reuses "
+          f"saved {SIM_SECONDS['saved']:.1f} s", flush=True)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "veloslam_tpu"))
     if loaded:
@@ -4380,7 +4564,9 @@ def main() -> int:
     src = "veloslam_tpu_torch/csrc/"
 
     def paths(name):
-        return {"paths_launches": {part: got[name] for part, got in
+        return {"bench_launches": {part: got[name] for part, got in
+                                   bench_launches.items()},
+                "paths_launches": {part: got[name] for part, got in
                                    paths_launches.items()},
                 "paths_max_abs_err": paths_errs[name],
                 "live_launches": {part: got[name] for part, got in
@@ -4420,6 +4606,8 @@ def main() -> int:
          + long_launches["chain_solve"],
          "per_frame_launches": perframe_launches["chain_factor"]
          + perframe_launches["chain_solve"],
+         "bench_launches": {part: got["chain_factor"] + got["chain_solve"]
+                            for part, got in bench_launches.items()},
          "paths_launches": {part: got["chain_factor"] + got["chain_solve"]
                             for part, got in paths_launches.items()},
          "live_launches": {part: got["chain_factor"] + got["chain_solve"]
