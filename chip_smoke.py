@@ -3157,8 +3157,16 @@ class SyncCountingStages:
     def summary(self):
         return self._timers.summary()
 
+    def innermost(self):
+        return self._timers.innermost()
+
     @contextlib.contextmanager
     def stage(self, name: str):
+        if name.startswith("sync."):
+            # A sync span: its operation counts in the enclosing stage.
+            with self._timers.stage(name):
+                yield
+            return
         with self._timers.stage(name):
             before = _launches()
             with _watching_syncs(self.sites.setdefault(name, {})):

@@ -365,7 +365,7 @@ def test_stage_timers_sync_at_stage_end():
             pass
     s = timers.summary()
     assert calls == [1, 1, 1] and s["a"]["count"] == 3
-    assert set(s["a"]) == {"total_s", "count", "mean_ms"}
+    assert set(s["a"]) == {"total_s", "count", "mean_ms", "self_s"}
     assert "a" in timers.report()
 
 

@@ -38,7 +38,11 @@ from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
 
 PER_FRAME_STAGES = {"decode", "compensate", "assemble", "frame",
                     "register", "map_update", "loop_verify", "graph_solve",
-                    "map_downdate", "landmarks"}
+                    "map_downdate", "landmarks", "pipeline_init",
+                    "read_inputs", "batch_prep", "frames_to_host",
+                    "frame_prep", "roi", "frame_store", "scan_context",
+                    "loop_propose", "map_reintegrate", "map_rebuild",
+                    "trajectory"}
 
 
 @pytest.fixture(scope="module", params=["small", "small_search"])

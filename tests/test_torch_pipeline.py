@@ -95,7 +95,8 @@ def test_small_pipeline_matches_jax(small):
     assert rmse < 0.1 * float(g("ate_raw_ins"))
     assert set(res["timing"]) == {
         "slam_batched", "device_finalize_queue", "device_sweep_readback",
-        "landmarks", "graph_solve", "map_downdate"}
+        "landmarks", "graph_solve", "map_downdate", "pipeline_init",
+        "read_inputs", "map_rebuild", "trajectory"}
 
 
 def test_results_have_the_jax_keys_and_ins_health(small):

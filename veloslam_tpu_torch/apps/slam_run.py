@@ -15,7 +15,12 @@ RPE against ground truth when it has one.  Three modes:
   --fast     bulk odometry only (StreamingOdometry on the device).
 
 `--checkpoint-dir` saves a resumable checkpoint (frame meta, INS track,
-map, graph) after the run.  `--bev` writes the interactive BEV artifact
+map, graph) after the run.  `--trace-dir` records the run (and the
+finalize of `--batched`) with torch.profiler into DIR/trace.json, a
+Chrome trace in which the pipeline's stages (`veloslam.<stage>`) and the
+card's kernels share one timeline.  The printed timing table gives each
+stage's seconds (`total`) and its own seconds less its nested stages'
+(`self`).  `--bev` writes the interactive BEV artifact
 (utils.viewer: trajectory, keyframes, closures, landmark posts, map
 occupancy, and the ground truth when there is one; one self-contained
 HTML file).  Everything runs on `--device` (default cuda); `--device
@@ -27,6 +32,7 @@ Usage:
   python -m veloslam_tpu_torch.apps.slam_run --simulate 7 --out-dir out
   python -m veloslam_tpu_torch.apps.slam_run --batched --simulate 7 \\
       --out-dir out
+  python -m veloslam_tpu_torch.apps.slam_run --simulate 7 --trace-dir tr
 """
 
 from __future__ import annotations
@@ -51,86 +57,8 @@ def _laser_mask(spec: str):
     return tuple(sorted(set(ids)))
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(
-        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--pcap", help="input pcap file")
-    ap.add_argument("--ins", help="INS text log (reference format)")
-    ap.add_argument("--model", default="hdl32",
-                    choices=["hdl32", "vlp16", "hdl64"])
-    ap.add_argument("--calibration", help="Velodyne XML calibration file")
-    ap.add_argument("--lasers", metavar="SPEC",
-                    help="laser selection: comma list of wire laser ids "
-                         "and ranges, e.g. '0,2,4-15' (default: all)")
-    ap.add_argument("--out-dir", default="slam_out")
-    ap.add_argument("--max-packets", type=int)
-    ap.add_argument("--simulate", type=float, metavar="SECONDS",
-                    help="generate a synthetic drive instead of reading "
-                         "files; also enables ATE evaluation")
-    ap.add_argument("--ins-drift", type=float, default=0.0,
-                    help="with --simulate: inject linear INS drift (m/s)")
-    ap.add_argument("--checkpoint-dir", help="save a resumable checkpoint")
-    ap.add_argument("--gt", help="ground-truth trajectory txt "
-                                 "(t_us x y z per row) for ATE")
-    ap.add_argument("--bev", nargs="?", const="bev.html", metavar="FILE",
-                    help="write an interactive BEV trajectory artifact "
-                         "(self-contained HTML; default bev.html in "
-                         "--out-dir)")
-    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="where the pipeline runs (cpu: the kernels' "
-                         "plain versions)")
-    mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--fast", action="store_true",
-                      help="bulk odometry only: every frame of a packet "
-                           "batch registers in one device step (no "
-                           "keyframes, loop closure or map)")
-    mode.add_argument("--batched", action="store_true",
-                      help="full SLAM at bulk-replay rate: device keyframe "
-                           "ring and scan-context descriptors in the "
-                           "odometry step, then loop closure, landmarks, "
-                           "graph solve and map rebuild at finalize")
-    ap.add_argument("--batch", type=int, default=8192,
-                    help="packets per device step (--fast / --batched)")
-    args = ap.parse_args(argv)
-
-    from veloslam_tpu_torch.config import SensorConfig, SlamConfig
-    from veloslam_tpu_torch.runtime.evaluate import (ate,
-                                                     interpolate_positions,
-                                                     rpe)
-    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
-
-    os.makedirs(args.out_dir, exist_ok=True)
-    cfg = SlamConfig(sensor=SensorConfig(
-        model=args.model, calibration_path=args.calibration,
-        laser_mask=_laser_mask(args.lasers) if args.lasers else None))
-    pipe = SlamPipeline(cfg, spill_dir=os.path.join(args.out_dir, "spill"),
-                        device=args.device)
-
-    gt = None
-    if args.simulate:
-        from veloslam_tpu_torch.io import packets as pkmod
-        from veloslam_tpu_torch.io import simulate as sim
-        print(f"simulating {args.simulate}s {args.model} drive ...")
-        seq = sim.generate_sequence(duration_s=args.simulate,
-                                    model=args.model)
-        paths = sim.write_sequence(seq, args.out_dir, name="sim")
-        gt = {"t_us": seq["ins_t_us"], "pos": seq["ins_pos"]}
-        if args.ins_drift > 0:
-            # corrupt the INS log with a linear drift for SLAM to correct
-            ins = pkmod.read_ins_txt(paths["ins"])
-            ts = (ins["t_us"] - ins["t_us"][0]) * 1e-6
-            drift = np.stack([args.ins_drift * ts,
-                              0.5 * args.ins_drift * ts], -1)
-            pkmod.write_ins_txt(paths["ins"], ins["t_us"],
-                                ins["pos_xy"] + drift,
-                                np.deg2rad(ins["yaw_deg"]),
-                                speed=ins["speed"])
-        pcap_path, ins_path = paths["pcap"], paths["ins"]
-    else:
-        if not args.pcap:
-            ap.error("--pcap required (or use --simulate)")
-        pcap_path, ins_path = args.pcap, args.ins
-
+def _run(args, pipe, pcap_path: str, ins_path) -> dict:
+    """The run of the mode that `args` selects; its results."""
     if args.fast:
         from veloslam_tpu_torch.io.pcap import read_lidar_packets
         from veloslam_tpu_torch.runtime.odometry import (StreamingOdometry,
@@ -171,6 +99,96 @@ def main(argv=None) -> int:
     else:
         res = pipe.run_offline(pcap_path, ins_path,
                                max_packets=args.max_packets)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--pcap", help="input pcap file")
+    ap.add_argument("--ins", help="INS text log (reference format)")
+    ap.add_argument("--model", default="hdl32",
+                    choices=["hdl32", "vlp16", "hdl64"])
+    ap.add_argument("--calibration", help="Velodyne XML calibration file")
+    ap.add_argument("--lasers", metavar="SPEC",
+                    help="laser selection: comma list of wire laser ids "
+                         "and ranges, e.g. '0,2,4-15' (default: all)")
+    ap.add_argument("--out-dir", default="slam_out")
+    ap.add_argument("--max-packets", type=int)
+    ap.add_argument("--simulate", type=float, metavar="SECONDS",
+                    help="generate a synthetic drive instead of reading "
+                         "files; also enables ATE evaluation")
+    ap.add_argument("--ins-drift", type=float, default=0.0,
+                    help="with --simulate: inject linear INS drift (m/s)")
+    ap.add_argument("--checkpoint-dir", help="save a resumable checkpoint")
+    ap.add_argument("--trace-dir", metavar="DIR",
+                    help="record the run with torch.profiler into "
+                         "DIR/trace.json (Chrome trace: the stages as "
+                         "veloslam.<stage> beside the card's kernels)")
+    ap.add_argument("--gt", help="ground-truth trajectory txt "
+                                 "(t_us x y z per row) for ATE")
+    ap.add_argument("--bev", nargs="?", const="bev.html", metavar="FILE",
+                    help="write an interactive BEV trajectory artifact "
+                         "(self-contained HTML; default bev.html in "
+                         "--out-dir)")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the pipeline runs (cpu: the kernels' "
+                         "plain versions)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--fast", action="store_true",
+                      help="bulk odometry only: every frame of a packet "
+                           "batch registers in one device step (no "
+                           "keyframes, loop closure or map)")
+    mode.add_argument("--batched", action="store_true",
+                      help="full SLAM at bulk-replay rate: device keyframe "
+                           "ring and scan-context descriptors in the "
+                           "odometry step, then loop closure, landmarks, "
+                           "graph solve and map rebuild at finalize")
+    ap.add_argument("--batch", type=int, default=8192,
+                    help="packets per device step (--fast / --batched)")
+    args = ap.parse_args(argv)
+
+    from veloslam_tpu_torch.config import SensorConfig, SlamConfig
+    from veloslam_tpu_torch.runtime.evaluate import (ate,
+                                                     interpolate_positions,
+                                                     rpe)
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    from veloslam_tpu_torch.utils.profiling import device_trace
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    cfg = SlamConfig(sensor=SensorConfig(
+        model=args.model, calibration_path=args.calibration,
+        laser_mask=_laser_mask(args.lasers) if args.lasers else None))
+    pipe = SlamPipeline(cfg, spill_dir=os.path.join(args.out_dir, "spill"),
+                        device=args.device)
+
+    gt = None
+    if args.simulate:
+        from veloslam_tpu_torch.io import packets as pkmod
+        from veloslam_tpu_torch.io import simulate as sim
+        print(f"simulating {args.simulate}s {args.model} drive ...")
+        seq = sim.generate_sequence(duration_s=args.simulate,
+                                    model=args.model)
+        paths = sim.write_sequence(seq, args.out_dir, name="sim")
+        gt = {"t_us": seq["ins_t_us"], "pos": seq["ins_pos"]}
+        if args.ins_drift > 0:
+            # corrupt the INS log with a linear drift for SLAM to correct
+            ins = pkmod.read_ins_txt(paths["ins"])
+            ts = (ins["t_us"] - ins["t_us"][0]) * 1e-6
+            drift = np.stack([args.ins_drift * ts,
+                              0.5 * args.ins_drift * ts], -1)
+            pkmod.write_ins_txt(paths["ins"], ins["t_us"],
+                                ins["pos_xy"] + drift,
+                                np.deg2rad(ins["yaw_deg"]),
+                                speed=ins["speed"])
+        pcap_path, ins_path = paths["pcap"], paths["ins"]
+    else:
+        if not args.pcap:
+            ap.error("--pcap required (or use --simulate)")
+        pcap_path, ins_path = args.pcap, args.ins
+
+    with device_trace(args.trace_dir):
+        res = _run(args, pipe, pcap_path, ins_path)
 
     traj_path = os.path.join(args.out_dir, "trajectory.txt")
     with open(traj_path, "w") as f:

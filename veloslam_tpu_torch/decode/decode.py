@@ -21,6 +21,7 @@ import torch
 from veloslam_tpu_torch import constants as C
 from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.core.timeline import interpolate_poses
+from veloslam_tpu_torch.utils.profiling import sync_span
 
 
 class DeviceCalib(NamedTuple):
@@ -47,14 +48,17 @@ class DeviceCalib(NamedTuple):
             sort_beams = L == 64
         rows = np.argsort(calib.beam_order()) if sort_beams else np.arange(L)
 
+        def up(a):
+            with sync_span(device):
+                return torch.as_tensor(a, device=device)
+
         def f32(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+            return up(np.asarray(a, np.float32))
 
         return cls(f32(calib.rot_correction_deg), f32(calib.sin_vert),
                    f32(calib.cos_vert), f32(calib.dist_correction_m),
                    f32(calib.vert_offset_m), f32(calib.horiz_offset_m),
-                   torch.as_tensor(en, device=device),
-                   torch.as_tensor(rows.astype(np.int32), device=device))
+                   up(en), up(rows.astype(np.int32)))
 
 
 class DecodedBatch(NamedTuple):

@@ -28,6 +28,7 @@ import torch
 from veloslam_tpu_torch import constants as C
 from veloslam_tpu_torch.core.segment import segment_min, take
 from veloslam_tpu_torch.decode.decode import DecodedBatch, frame_break_flags
+from veloslam_tpu_torch.utils.profiling import sync_span
 
 _HASH_MUL = 2654435761      # Fibonacci hashing constant (uint32)
 
@@ -160,7 +161,10 @@ def assemble_frames(decoded: DecodedBatch, xyz_world: torch.Tensor,
     last = torch.full((M,), -1, dtype=torch.int64, device=dev)
     last.scatter_reduce_(0, flat_idx, src, "amax", include_self=True)
     win = last[flat_idx] == src
-    cells, rows = flat_idx[win], src[win]
+    with sync_span(win):
+        cells = flat_idx[win]
+    with sync_span(win):
+        rows = src[win]
 
     def scatter(carry_arr, vals, extra=()):
         buf = torch.zeros((S + 2, L, F, *extra), dtype=carry_arr.dtype,

@@ -29,6 +29,7 @@ import torch
 
 from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.registration import gicp
+from veloslam_tpu_torch.utils.profiling import sync_span
 
 
 def find_candidates(positions: np.ndarray, *, radius: float = 15.0,
@@ -84,7 +85,8 @@ def _read(*xs: torch.Tensor) -> List[np.ndarray]:
     counts involved are exact in it): one host synchronization."""
     C = xs[0].shape[0]
     flat = torch.cat([x.reshape(C, -1).to(torch.float32) for x in xs], 1)
-    host = flat.cpu().numpy()
+    with sync_span(flat):
+        host = flat.cpu().numpy()
     out, col = [], 0
     for x in xs:
         w = int(np.prod(x.shape[1:], dtype=np.int64))

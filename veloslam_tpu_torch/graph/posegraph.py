@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from veloslam_tpu_torch.core import se3
+from veloslam_tpu_torch.utils.profiling import sync_span
 
 
 class GraphArrays(NamedTuple):
@@ -168,7 +169,8 @@ class PoseGraph:
         o_valid &= self.o_ok
 
         def dev(a):
-            return torch.as_tensor(np.array(a), device=device)
+            with sync_span(device):
+                return torch.as_tensor(np.array(a), device=device)
 
         return GraphArrays(
             q=dev(self.q), t=dev(self.t), n_poses=dev(np.int32(self.n_poses)),

@@ -35,6 +35,7 @@ from veloslam_tpu_torch.config import MapConfig
 from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.map.landmarks import Landmarks
 from veloslam_tpu_torch.registration import voxel as vx
+from veloslam_tpu_torch.utils.profiling import sync_span
 
 # Fixed chunk of scans per batched transform + voxelize pass.
 _BATCH_CHUNK = 64
@@ -51,7 +52,10 @@ def transform_build_chunk(pts, msk, q, t, origins, voxel_size, *,
 
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    with sync_span(x):
+        return x.cpu().numpy()
 
 
 class MapPatchData:
@@ -188,7 +192,8 @@ class VoxelMap:
         mean = _host(grid.mean)[occ].astype(np.float64)
         cov = _host(grid.cov)[occ].astype(np.float64)
         origin = _host(grid.origin).astype(np.float64)
-        vs = float(grid.voxel_size)
+        with sync_span(grid.voxel_size):
+            vs = float(grid.voxel_size)
         # Unpack keys to absolute integer voxel coords.
         bits = 10
         half = 1 << (bits - 1)
@@ -226,12 +231,18 @@ class VoxelMap:
         vs = self.cfg.voxel_size
         origin = np.floor(np.asarray(center, np.float64) / vs) * vs
         dev = self.device
-        grid = vx.build_grid(
-            torch.as_tensor(np.asarray(pts_world, np.float32), device=dev),
-            torch.as_tensor(np.asarray(mask, bool), device=dev),
-            torch.as_tensor(origin.astype(np.float32), device=dev),
-            torch.tensor(vs, dtype=torch.float32, device=dev),
-            capacity=self.cfg.voxels_per_patch)
+        with sync_span(dev):
+            pts_dev = torch.as_tensor(np.asarray(pts_world, np.float32),
+                                      device=dev)
+        with sync_span(dev):
+            mask_dev = torch.as_tensor(np.asarray(mask, bool), device=dev)
+        with sync_span(dev):
+            origin_dev = torch.as_tensor(origin.astype(np.float32),
+                                         device=dev)
+        with sync_span(dev):
+            vs_dev = torch.tensor(vs, dtype=torch.float32, device=dev)
+        grid = vx.build_grid(pts_dev, mask_dev, origin_dev, vs_dev,
+                             capacity=self.cfg.voxels_per_patch)
         if sign != 1.0:
             grid = grid._replace(count=grid.count * sign)
         self.integrate_grid(grid, sign=sign, tile_filter=tile_filter)
@@ -258,7 +269,8 @@ class VoxelMap:
         q = np.asarray(q, np.float32)
         t = np.asarray(t, np.float32)
         dev = self.device
-        vs_dev = torch.tensor(vs, dtype=torch.float32, device=dev)
+        with sync_span(dev):
+            vs_dev = torch.tensor(vs, dtype=torch.float32, device=dev)
         for s0 in range(0, K, ch):
             n = min(ch, K - s0)
             pad = ch - n
@@ -268,7 +280,8 @@ class VoxelMap:
                 if pad:
                     sl = np.concatenate(
                         [sl, np.zeros((pad,) + a.shape[1:], a.dtype)])
-                return torch.as_tensor(sl, device=dev)
+                with sync_span(dev):
+                    return torch.as_tensor(sl, device=dev)
 
             pq = padded(q)
             if pad:
@@ -397,7 +410,8 @@ class VoxelMap:
         rows[:n, 5:14] = cov[:n].reshape(-1, 9)
         buf = np.concatenate([rows.T.reshape(-1), origin,
                               np.asarray([vs], np.float32)])
-        dev = torch.as_tensor(buf, device=self.device)
+        with sync_span(self.device):
+            dev = torch.as_tensor(buf, device=self.device)
         cols = dev[:14 * cap].reshape(14, cap)
         return vx.VoxelGrid(
             keys=cols[0].contiguous().view(torch.int32),

@@ -46,7 +46,10 @@ the caller asks for "cpu"); the per-frame pose bookkeeping, the ROI
 assembly, the closure proposal and accept decision, the landmark
 association and the map's tile merge are host work, as in the JAX
 package (the small pose math in float32 torch on the CPU).  Stage names
-are the JAX package's; the card's work is queued asynchronously, so a
+are the JAX package's, with more stages nested in and beside them so that
+the per-frame path spends its time inside named stages, and each of its
+host-card synchronizations is a `sync.<stage>` span
+(utils/profiling.py); the card's work is queued asynchronously, so a
 stage's time is its enqueue time unless the timers synchronize.
 
 Registration follows `RegistrationConfig.method`: point-to-plane GICP,
@@ -58,6 +61,7 @@ does not need.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import warnings
@@ -92,7 +96,8 @@ from veloslam_tpu_torch.runtime.framestore import FrameStore
 from veloslam_tpu_torch.runtime.fullslam import FullSlam
 from veloslam_tpu_torch.runtime.odometry import (packets_per_second,
                                                  slots_for_batch)
-from veloslam_tpu_torch.utils.profiling import StageTimers
+from veloslam_tpu_torch.utils import profiling
+from veloslam_tpu_torch.utils.profiling import StageTimers, sync_span
 
 
 def sweep_budget(eng, floor: int) -> int:
@@ -159,7 +164,19 @@ def _host_pose(q, t) -> se3.Pose:
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy().copy()
+    with sync_span(x):
+        return x.detach().cpu().numpy().copy()
+
+
+def _recorded(method):
+    """An entry point of SlamPipeline, run with the pipeline's timers
+    bound as the recorder (utils.profiling.recording) of the stages and
+    sync spans of code that has no pipeline at hand."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with profiling.recording(self.timers):
+            return method(self, *args, **kwargs)
+    return run
 
 
 class SlamPipeline:
@@ -171,6 +188,13 @@ class SlamPipeline:
                 "SlamPipeline runs on a CUDA card by default and "
                 "torch.cuda.is_available() is False; pass device='cpu' to "
                 "run on the CPU (the kernels' plain versions)")
+        self.timers = StageTimers()
+        with profiling.recording(self.timers), \
+                self.timers.stage("pipeline_init"):
+            self._init(config, spill_dir)
+
+    def _init(self, config: Optional[SlamConfig],
+              spill_dir: Optional[str]) -> None:
         self.cfg = config or SlamConfig()
         sc = self.cfg.sensor
         self.calib = (calib_mod.from_xml(sc.calibration_path)
@@ -198,7 +222,6 @@ class SlamPipeline:
         # keyframe motion since creation.
         self._kf_pose_at_creation: List[Tuple[np.ndarray, np.ndarray]] = []
         self.trajectory: List[FrameResult] = []
-        self.timers = StageTimers()
         self.closures: List[Tuple[int, int]] = []
         self._carry = AssemblyCarry.init(sc.n_lasers,
                                          sc.max_firings_per_frame,
@@ -292,11 +315,13 @@ class SlamPipeline:
         pc = self.cfg.pipeline
         dev = self.device
         anchor = int(times_us[0])
-        rel = torch.as_tensor(((times_us - anchor) * 1e-6).astype(np.float32),
-                              device=dev)
+        with self.timers.stage("batch_prep"), sync_span(dev):
+            rel = torch.as_tensor(
+                ((times_us - anchor) * 1e-6).astype(np.float32), device=dev)
         with self.timers.stage("decode"):
-            dec = decode_packets(torch.as_tensor(pkts, device=dev),
-                                 self.dcalib, model=sc.model,
+            with sync_span(dev):
+                pkts_dev = torch.as_tensor(pkts, device=dev)
+            dec = decode_packets(pkts_dev, self.dcalib, model=sc.model,
                                  crop_region=sc.crop_region,
                                  crop_inside=sc.crop_inside,
                                  points_skip=pc.points_skip)
@@ -306,9 +331,12 @@ class SlamPipeline:
             with self.timers.stage("compensate"):
                 w = self.track.window(int(times_us[0]), int(times_us[-1]),
                                       anchor_us=anchor)
+                track = []
+                for k in ("rel_s", "q", "t", "v"):
+                    with sync_span(dev):
+                        track.append(torch.as_tensor(w[k], device=dev))
                 xyz_w, _ = compensate(
-                    dec, rel, *(torch.as_tensor(w[k], device=dev)
-                                for k in ("rel_s", "q", "t", "v")),
+                    dec, rel, *track,
                     per_packet=(pc.compensation == "per_packet"))
         else:
             xyz_w = dec.xyz
@@ -331,10 +359,13 @@ class SlamPipeline:
                 dec, xyz_w, rel, carry, carry_start, model=sc.model,
                 n_beams=sc.n_lasers, max_firings=sc.max_firings_per_frame)
             head = torch.cat([n_done.to(torch.float32)[None], starts,
-                              open_start[None]]).cpu().numpy()
+                              open_start[None]])
+            with sync_span(head):
+                head = head.cpu().numpy()
         n = int(head[0])
-        return (self._frame_dicts(fb, n), head[1:1 + n], carry,
-                head[-1], anchor)
+        with self.timers.stage("frames_to_host"):
+            frames = self._frame_dicts(fb, n)
+        return frames, head[1:1 + n], carry, head[-1], anchor
 
     @staticmethod
     def _frame_dicts(fb, n: int) -> List[Dict]:
@@ -346,8 +377,9 @@ class SlamPipeline:
         parts = (fb.xyz[:n].reshape(n, -1), fb.mask[:n].reshape(n, -1),
                  fb.intensity[:n].reshape(n, -1), fb.rel_s[:n].reshape(n, -1),
                  fb.azimuth[:n].reshape(n, -1))
-        host = torch.cat([x.to(torch.float32) for x in parts],
-                         1).cpu().numpy()
+        host = torch.cat([x.to(torch.float32) for x in parts], 1)
+        with sync_span(host):
+            host = host.cpu().numpy()
         LF = L * F
         out = []
         for k in range(n):
@@ -361,6 +393,7 @@ class SlamPipeline:
             })
         return out
 
+    @_recorded
     def process_packets(self, pkts: np.ndarray, times_us: np.ndarray,
                         offsets: Optional[np.ndarray] = None,
                         pcap_path: Optional[str] = None) -> int:
@@ -457,27 +490,29 @@ class SlamPipeline:
             return None
         return max(candidates, key=lambda f: int(f["mask"].sum()))
 
+    @_recorded
     def run_offline(self, pcap_path: str, ins_path: Optional[str] = None,
                     max_packets: Optional[int] = None) -> Dict:
         """Drive the whole pcap through the per-frame pipeline, in
         `packets_per_batch` batches (the last padded with idle packets).
         HDL timestamps are GPS-grounded from the pcap's position packets
         when present."""
-        if ins_path:
-            self.feed_ins_txt(ins_path)
-        pkts, times, offs = read_lidar_packets(pcap_path, max_packets)
-        times = self._ground_offline_times(pcap_path, pkts, times)
         B = self.cfg.pipeline.packets_per_batch
-        tail = len(pkts) % B
-        if tail:
-            # Idle packets (no returns, frozen azimuth) so the frames at
-            # the end of the recording are not dropped.
-            pkts = np.concatenate(
-                [pkts, pk.idle_lidar_packets(pkts[-1], B - tail)])
-            times = np.concatenate(
-                [times, np.full(B - tail, times[-1], np.int64)])
-            offs = np.concatenate(
-                [offs, np.full(B - tail, offs[-1], np.int64)])
+        with self.timers.stage("read_inputs"):
+            if ins_path:
+                self.feed_ins_txt(ins_path)
+            pkts, times, offs = read_lidar_packets(pcap_path, max_packets)
+            times = self._ground_offline_times(pcap_path, pkts, times)
+            tail = len(pkts) % B
+            if tail:
+                # Idle packets (no returns, frozen azimuth) so the frames
+                # at the end of the recording are not dropped.
+                pkts = np.concatenate(
+                    [pkts, pk.idle_lidar_packets(pkts[-1], B - tail)])
+                times = np.concatenate(
+                    [times, np.full(B - tail, times[-1], np.int64)])
+                offs = np.concatenate(
+                    [offs, np.full(B - tail, offs[-1], np.int64)])
         for s in range(0, len(pkts), B):
             self.process_packets(pkts[s:s + B], times[s:s + B],
                                  offsets=offs[s:s + B], pcap_path=pcap_path)
@@ -485,6 +520,7 @@ class SlamPipeline:
 
     # --- the batched offline run --------------------------------------------
 
+    @_recorded
     def run_offline_batched(self, pcap_path: str,
                             ins_path: Optional[str] = None,
                             max_packets: Optional[int] = None,
@@ -499,10 +535,11 @@ class SlamPipeline:
         `finalize()` with `defer_map`).  Correspondences come from the
         map's dilated dense index, or with use_dense_index=False from the
         exact binary-search lookup.  Frame payloads are not kept."""
-        if ins_path:
-            self.feed_ins_txt(ins_path)
-        pkts, times, _ = read_lidar_packets(pcap_path, max_packets)
-        times = self._ground_offline_times(pcap_path, pkts, times)
+        with self.timers.stage("read_inputs"):
+            if ins_path:
+                self.feed_ins_txt(ins_path)
+            pkts, times, _ = read_lidar_packets(pcap_path, max_packets)
+            times = self._ground_offline_times(pcap_path, pkts, times)
         if len(pkts) == 0:
             return self.results()
         with self.timers.stage("slam_batched"):
@@ -692,6 +729,7 @@ class SlamPipeline:
                                   // 1024) * 1024)
         return eng
 
+    @_recorded
     def run_online(self, lidar_port: int = None, ins_port: int = None,
                    position_port: int = None,
                    origin_llh_deg=None, duration_s: Optional[float] = None,
@@ -847,8 +885,11 @@ class SlamPipeline:
                                     g.n_edges, 0)
         out, _ = pcg.solve_auto(cropped, max_poses=Kc,
                                 iterations=self.cfg.graph.gn_iterations)
-        g.update_from(out.q[:g.n_poses].cpu().numpy(),
-                      out.t[:g.n_poses].cpu().numpy())
+        with sync_span(out.q):
+            q = out.q[:g.n_poses].cpu().numpy()
+        with sync_span(out.t):
+            t = out.t[:g.n_poses].cpu().numpy()
+        g.update_from(q, t)
 
     def _solve_graph_landmarks(self) -> None:
         """Landmark-aided solve (Schur-eliminated landmarks) of the host
@@ -860,9 +901,13 @@ class SlamPipeline:
         out, _ = pcg.solve_auto_landmarks(
             cropped, max_poses=Kc, max_landmarks=Mc,
             iterations=self.cfg.graph.gn_iterations)
-        g.update_from(out.q[:g.n_poses].cpu().numpy(),
-                      out.t[:g.n_poses].cpu().numpy(),
-                      out.l_pos[:g.n_landmarks].cpu().numpy())
+        with sync_span(out.q):
+            q = out.q[:g.n_poses].cpu().numpy()
+        with sync_span(out.t):
+            t = out.t[:g.n_poses].cpu().numpy()
+        with sync_span(out.l_pos):
+            l_pos = out.l_pos[:g.n_landmarks].cpu().numpy()
+        g.update_from(q, t, l_pos)
 
     def _integrate_scan(self, pts_world: np.ndarray, mask: np.ndarray,
                         center: np.ndarray, map_obj=None,
@@ -920,18 +965,21 @@ class SlamPipeline:
         against its sharded map."""
         rc = self.cfg.registration
         prior_t = T_prior.t.numpy()
-        roi = self.map.roi_grid(float(prior_t[0]), float(prior_t[1]))
+        with self.timers.stage("roi"):
+            roi = self.map.roi_grid(float(prior_t[0]), float(prior_t[1]))
         if roi is None:
             return None
         dev = self.device
         with self.timers.stage("register"):
             # Points and prior in one upload.
             P = len(pts)
-            buf = torch.as_tensor(np.concatenate(
-                [pts.reshape(-1), T_prior.q.numpy(), T_prior.t.numpy()]),
-                device=dev)
+            with sync_span(dev):
+                buf = torch.as_tensor(np.concatenate(
+                    [pts.reshape(-1), T_prior.q.numpy(), T_prior.t.numpy()]),
+                    device=dev)
             pts_dev = buf[:3 * P].reshape(P, 3)
-            mask_dev = torch.as_tensor(mask, device=dev)
+            with sync_span(dev):
+                mask_dev = torch.as_tensor(mask, device=dev)
             prior = se3.Pose(buf[3 * P:3 * P + 4], buf[3 * P + 4:])
             if rc.method == "d2d":
                 src = vx.build_grid(pts_dev, mask_dev, roi.origin,
@@ -963,7 +1011,9 @@ class SlamPipeline:
                     reassociate_every=rc.reassociate_every)
             out = torch.cat([res.pose.q, res.pose.t,
                              res.n_matched.to(torch.float32)[None],
-                             res.mean_error[None]]).cpu()
+                             res.mean_error[None]])
+            with sync_span(out):
+                out = out.cpu()
         return FrameRegistration(pose=se3.Pose(out[:4], out[4:7]),
                                  n_matched=int(out[7]),
                                  mean_error=float(out[8]))
@@ -976,23 +1026,26 @@ class SlamPipeline:
         frame-start INS pose, with the prior T_est_prev ∘ (T_ins_prev⁻¹ ∘
         T_ins_cur)."""
         rc = self.cfg.registration
-        ins = self._ins_pose_at(start_us)
-        if ins is not None:
-            pts_local_full = se3.apply(
-                se3.inverse(ins), torch.as_tensor(frame["xyz"])).numpy()
-        else:
-            pts_local_full = frame["xyz"]
-        pts, mask = self._subsample({"xyz": pts_local_full,
-                                     "mask": frame["mask"]})
+        timers = self.timers
+        with timers.stage("frame_prep"):
+            ins = self._ins_pose_at(start_us)
+            if ins is not None:
+                pts_local_full = se3.apply(
+                    se3.inverse(ins), torch.as_tensor(frame["xyz"])).numpy()
+            else:
+                pts_local_full = frame["xyz"]
+            pts, mask = self._subsample({"xyz": pts_local_full,
+                                         "mask": frame["mask"]})
 
-        # Prior: previous estimate composed with the INS relative motion.
-        if self._last_est is None:
-            T_prior = ins if ins is not None else se3.Pose.identity()
-        elif ins is not None and self._last_ins is not None:
-            rel = se3.compose(se3.inverse(self._last_ins), ins)
-            T_prior = se3.compose(self._last_est, rel)
-        else:
-            T_prior = self._last_est
+            # Prior: previous estimate composed with the INS relative
+            # motion.
+            if self._last_est is None:
+                T_prior = ins if ins is not None else se3.Pose.identity()
+            elif ins is not None and self._last_ins is not None:
+                rel = se3.compose(se3.inverse(self._last_ins), ins)
+                T_prior = se3.compose(self._last_est, rel)
+            else:
+                T_prior = self._last_est
 
         registered = False
         n_matched, mean_error = 0, float("nan")
@@ -1008,17 +1061,19 @@ class SlamPipeline:
                 registered = True
 
         # Integrate the corrected scan into the map.
-        pts_world = se3.apply(T_est, torch.as_tensor(pts)).numpy()
-        est_q, est_t = _np(T_est.q), _np(T_est.t)
-        with self.timers.stage("map_update"):
+        with timers.stage("frame_prep"):
+            pts_world = se3.apply(T_est, torch.as_tensor(pts)).numpy()
+            est_q, est_t = _np(T_est.q), _np(T_est.t)
+        with timers.stage("map_update"):
             self._integrate_scan(pts_world, mask, est_t)
 
-        self.frames.add_frame(start_us, frame, carpose_q=est_q,
-                              carpose_t=est_t, source=source)
-        self.trajectory.append(FrameResult(
-            start_us=start_us, pose_q=est_q, pose_t=est_t,
-            n_points=int(mask.sum()), n_matched=n_matched,
-            mean_error=mean_error, registered=registered))
+        with timers.stage("frame_store"):
+            self.frames.add_frame(start_us, frame, carpose_q=est_q,
+                                  carpose_t=est_t, source=source)
+            self.trajectory.append(FrameResult(
+                start_us=start_us, pose_q=est_q, pose_t=est_t,
+                n_points=int(mask.sum()), n_matched=n_matched,
+                mean_error=mean_error, registered=registered))
         self._maybe_keyframe(T_est, pts, mask, start_us)
         self._last_ins = ins
         self._last_est = T_est
@@ -1046,9 +1101,13 @@ class SlamPipeline:
         self.keyframe_scans.append((pts.copy(), mask.copy()))
         if gc.use_scan_context:
             dev = self.device
-            self.keyframe_descs.append(_np(sc_mod.scan_context(
-                torch.as_tensor(pts, device=dev),
-                torch.as_tensor(mask, device=dev))))
+            with self.timers.stage("scan_context"):
+                with sync_span(dev):
+                    pts_dev = torch.as_tensor(pts, device=dev)
+                with sync_span(dev):
+                    mask_dev = torch.as_tensor(mask, device=dev)
+                self.keyframe_descs.append(_np(sc_mod.scan_context(
+                    pts_dev, mask_dev)))
         self.keyframe_times.append(start_us)
         # The pose (and path) this keyframe's scan entered the map with,
         # in _handle_frame just before: the downdate anchor.
@@ -1082,10 +1141,13 @@ class SlamPipeline:
             out.append((i, j, se3.relative(_host_pose(q[i], t[i]),
                                            _host_pose(q[j], t[j]))))
         if gc.use_scan_context and len(self.keyframe_descs) >= 2:
-            scores, shifts = sc_mod.descriptor_scores(torch.as_tensor(
-                np.stack(self.keyframe_descs), device=self.device))
-            host = torch.stack([scores, shifts.to(torch.float32)]
-                               ).cpu().numpy()
+            with sync_span(self.device):
+                descs = torch.as_tensor(np.stack(self.keyframe_descs),
+                                        device=self.device)
+            scores, shifts = sc_mod.descriptor_scores(descs)
+            host = torch.stack([scores, shifts.to(torch.float32)])
+            with sync_span(host):
+                host = host.cpu().numpy()
             for i, j, _, shift in sc_mod.propose(
                     host[0], host[1].astype(np.int32),
                     n_valid=len(self.keyframe_descs),
@@ -1105,23 +1167,30 @@ class SlamPipeline:
         the graph solve and the incremental map downdate."""
         rc = self.cfg.registration
         gc = self.cfg.graph
-        new_p = self._closure_candidates()
-        new = [(i, j) for i, j, _ in new_p]
-        accepted = 0
-        if new:
-            dev = self.device
+        dev = self.device
 
-            def stack(rows):
+        def stack(rows):
+            with sync_span(dev):
                 return torch.as_tensor(np.stack(rows), device=dev)
 
-            scans = self.keyframe_scans
-            pi = stack([scans[i][0] for i, _ in new])
-            mi = stack([scans[i][1] for i, _ in new])
-            pj = stack([scans[j][0] for _, j in new])
-            mj = stack([scans[j][1] for _, j in new])
-            rel_priors = se3.Pose(
-                torch.stack([p.q for _, _, p in new_p]).to(dev),
-                torch.stack([p.t for _, _, p in new_p]).to(dev))
+        def upload(x):
+            with sync_span(dev):
+                return x.to(dev)
+
+        with self.timers.stage("loop_propose"):
+            new_p = self._closure_candidates()
+            new = [(i, j) for i, j, _ in new_p]
+            if new:
+                scans = self.keyframe_scans
+                pi = stack([scans[i][0] for i, _ in new])
+                mi = stack([scans[i][1] for i, _ in new])
+                pj = stack([scans[j][0] for _, j in new])
+                mj = stack([scans[j][1] for _, j in new])
+                rel_priors = se3.Pose(
+                    upload(torch.stack([p.q for _, _, p in new_p])),
+                    upload(torch.stack([p.t for _, _, p in new_p])))
+        accepted = 0
+        if new:
             with self.timers.stage("loop_verify"):
                 measures = loopclosure.verify_closures_batch(
                     pi, mi, pj, mj, rel_priors,
@@ -1140,6 +1209,7 @@ class SlamPipeline:
             with self.timers.stage("map_downdate"):
                 self.update_map_incremental()
 
+    @_recorded
     def update_map_incremental(self, move_threshold_m: float = 0.05
                                ) -> int:
         """Incremental voxel downdating: for each keyframe whose optimized
@@ -1149,6 +1219,10 @@ class SlamPipeline:
         by (`_kf_integrated_via`), so the subtraction is the exact inverse
         of the addition.  Non-keyframe frames stay as integrated.  Returns
         the number of keyframes re-integrated."""
+        with self.timers.stage("map_reintegrate"):
+            return self._reintegrate_moved(move_threshold_m)
+
+    def _reintegrate_moved(self, move_threshold_m: float) -> int:
         q, t = self.graph.poses()
         moved_k = [
             k for k in range(len(self.keyframe_scans))
@@ -1192,22 +1266,24 @@ class SlamPipeline:
             self._kf_map_pose[k] = (q[k].copy(), t[k].copy())
         return len(moved_k)
 
+    @_recorded
     def rebuild_map(self) -> None:
         """Re-integrate all keyframe scans at their optimized graph poses
         into a fresh map."""
-        q, t = self.graph.poses()
-        fresh = VoxelMap(self.cfg.map, spill_dir=self.map.spill_dir,
-                         device=self.device)
-        K = len(self.keyframe_scans)
-        if K:
-            fresh.integrate_scans_batch(
-                np.stack([p for p, _ in self.keyframe_scans]),
-                np.stack([m for _, m in self.keyframe_scans]),
-                q[:K], t[:K], tile_filter=self._tile_filter())
-            for k in range(min(K, len(self._kf_map_pose))):
-                self._kf_map_pose[k] = (q[k].copy(), t[k].copy())
-                self._kf_integrated_via[k] = "batch"
-        self.map = fresh
+        with self.timers.stage("map_rebuild"):
+            q, t = self.graph.poses()
+            fresh = VoxelMap(self.cfg.map, spill_dir=self.map.spill_dir,
+                             device=self.device)
+            K = len(self.keyframe_scans)
+            if K:
+                fresh.integrate_scans_batch(
+                    np.stack([p for p, _ in self.keyframe_scans]),
+                    np.stack([m for _, m in self.keyframe_scans]),
+                    q[:K], t[:K], tile_filter=self._tile_filter())
+                for k in range(min(K, len(self._kf_map_pose))):
+                    self._kf_map_pose[k] = (q[k].copy(), t[k].copy())
+                    self._kf_integrated_via[k] = "batch"
+            self.map = fresh
 
     def _correct_trajectory(self, old_q: np.ndarray, old_t: np.ndarray
                             ) -> None:
@@ -1236,6 +1312,7 @@ class SlamPipeline:
         for i, r in enumerate(self.trajectory):
             r.pose_q, r.pose_t = q_np[i], t_np[i]
 
+    @_recorded
     def add_landmark_observations(self) -> Tuple[int, int]:
         """Extract post landmarks from every keyframe scan and add them as
         pose-landmark observations (graph.landmark_assoc).  Runs once;
@@ -1253,6 +1330,7 @@ class SlamPipeline:
                 min_observations=gc.landmark_min_observations,
                 obs_info=gc.landmark_obs_info)
 
+    @_recorded
     def finalize(self) -> Dict:
         """End-of-session pass: a last loop-closure sweep (skipped after
         run_offline_batched, whose sweep ran on the device), landmark
@@ -1285,17 +1363,20 @@ class SlamPipeline:
             with self.timers.stage("map_build"):
                 self.rebuild_map()
             self._map_deferred = False
-        # Correct the per-frame trajectory by each keyframe's total motion
-        # since creation.
-        if self._kf_pose_at_creation:
-            old_q = np.stack([q for q, _ in self._kf_pose_at_creation])
-            old_t = np.stack([t for _, t in self._kf_pose_at_creation])
-            self._correct_trajectory(old_q, old_t)
-            new_q, new_t = g.poses()
-            self._kf_pose_at_creation = [
-                (new_q[k].copy(), new_t[k].copy())
-                for k in range(g.n_poses)]
-        return self.results()
+        with self.timers.stage("trajectory"):
+            # Correct the per-frame trajectory by each keyframe's total
+            # motion since creation.
+            if self._kf_pose_at_creation:
+                old_q = np.stack([q for q, _ in self._kf_pose_at_creation])
+                old_t = np.stack([t for _, t in self._kf_pose_at_creation])
+                self._correct_trajectory(old_q, old_t)
+                new_q, new_t = g.poses()
+                self._kf_pose_at_creation = [
+                    (new_q[k].copy(), new_t[k].copy())
+                    for k in range(g.n_poses)]
+            res = self.results()
+        res["timing"] = self.timers.summary()   # `trajectory` included
+        return res
 
     # --- outputs ------------------------------------------------------------
 
@@ -1327,6 +1408,7 @@ class SlamPipeline:
 
     # --- checkpoints --------------------------------------------------------
 
+    @_recorded
     def save_checkpoint(self, dirname: str) -> None:
         """Full-session checkpoint: frame meta (with every frame's payload
         and pcap source), the INS track, the map and the graph, in the
