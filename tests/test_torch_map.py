@@ -227,3 +227,94 @@ def test_stream_downdate_restores_tiles_to_the_bit():
         for f in ("coords", "count", "s1", "s2"):
             assert getattr(pa[k], f).tobytes() == getattr(p, f).tobytes(), \
                 (k, f)
+
+
+def _voxel_stats(rng, coords, sign=1.0):
+    """Seeded statistics for the voxels `coords` (shuffled): counts of
+    1-29 points, moment sums scaled by them, some entries signed zeros."""
+    coords = rng.permutation(np.asarray(coords, np.int32))
+    count = rng.integers(1, 30, len(coords)).astype(np.float64)
+    s1 = rng.normal(size=(len(coords), 3)) * count[:, None]
+    s2 = rng.normal(size=(len(coords), 3, 3)) * count[:, None, None]
+    for s in (s1, s2):
+        zero = rng.random(s.shape) < 0.05
+        s[zero] = rng.choice([0.0, -0.0], int(zero.sum()))
+    return coords, sign * count, sign * s1, sign * s2
+
+
+def _cube(rng, n, center, spread=30):
+    """Up to n distinct voxels within ±spread of center."""
+    c = rng.integers(-spread, spread, (n, 3)) + np.asarray(center)
+    return np.unique(c, axis=0)
+
+
+def _merge_steps(case, rng):
+    """(coords, count, s1, s2, prune) merges, one list per case."""
+    empty = (np.zeros((0, 3), np.int32), np.zeros(0), np.zeros((0, 3)),
+             np.zeros((0, 3, 3)))
+    if case.startswith("adds_and_downdates"):
+        # Scans around a drifting centre; 30% downdate an earlier scan
+        # (counts and sums negated) with prune.
+        steps, added = [], []
+        for i in range(60):
+            if i > 5 and rng.random() < 0.3:
+                c, n, a, b = added[rng.integers(len(added))]
+                steps.append((c, -n, -a, -b, True))
+            else:
+                scan = _voxel_stats(rng, _cube(rng, 400, (i, 0, i % 3)))
+                added.append(scan)
+                steps.append(scan + (False,))
+        return steps
+    first = _voxel_stats(rng, _cube(rng, 2000, (0, 0, 0)))
+    if case == "all_new":
+        return [first + (False,),
+                _voxel_stats(rng, _cube(rng, 500, (100, -100, 0))) + (False,)]
+    if case == "all_exist":
+        some = first[0][rng.random(len(first[0])) < 0.3]
+        return [first + (False,), _voxel_stats(rng, some) + (False,),
+                _voxel_stats(rng, some, sign=-1.0) + (True,)]
+    if case == "empty_scan":
+        return [empty + (False,), empty + (True,), first + (False,),
+                empty + (False,), empty + (True,)]
+    if case == "negative_coords":
+        return [_voxel_stats(rng, _cube(rng, 800, c)) + (p,)
+                for c, p in (((-70000, -3000, -40), False),
+                             ((-70010, -2990, -45), False),
+                             ((-69990, -3000, -30), True))]
+    if case == "wide_span":
+        far = _voxel_stats(rng, [[2 ** 21 + 5, 0, 0], [-3, 1, 2]])
+        return [first + (False,), far + (False,),
+                _voxel_stats(rng, _cube(rng, 300, (0, 0, 0))) + (True,)]
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "adds_and_downdates_seed0", "adds_and_downdates_seed1", "all_new",
+    "all_exist", "empty_scan", "negative_coords", "wide_span"])
+def test_tile_merge_equals_the_jax_merge_to_the_bit(case):
+    """MapPatchData.merge, by sorted-key lookup, against the JAX
+    package's merge (np.unique over the whole tile), step by step: coords,
+    count, s1 and s2 equal to the bit, dtypes and shapes included.  A
+    span of 2^21 voxels or more on an axis takes the re-sort, counted in
+    the stage map_merge_resort; every merge is one stage map_merge."""
+    from veloslam_tpu.map.voxelmap import MapPatchData as JPatch
+    from veloslam_tpu_torch.map.voxelmap import MapPatchData
+    from veloslam_tpu_torch.utils.profiling import StageTimers, recording
+    rng = np.random.default_rng(sum(map(ord, case)))
+    ours, ref = MapPatchData(), JPatch()
+    timers = StageTimers()
+    steps = _merge_steps(case, rng)
+    for i, (c, n, a, b, prune) in enumerate(steps):
+        with recording(timers):
+            ours.merge(c, n, a, b, prune=prune)
+        ref.merge(c, n, a, b, prune=prune)
+        for f in ("coords", "count", "s1", "s2"):
+            got, want = getattr(ours, f), getattr(ref, f)
+            np.testing.assert_array_equal(got, want, err_msg=(i, f))
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert got.tobytes() == want.tobytes(), (i, f)
+    assert ref.n_voxels > 0 or case == "empty_scan"
+    s = timers.summary()
+    assert s["map_merge"]["count"] == len(steps)
+    resorts = s.get("map_merge_resort", {"count": 0})["count"]
+    assert resorts == (2 if case == "wide_span" else 0)

@@ -42,7 +42,7 @@ PER_FRAME_STAGES = {"decode", "compensate", "assemble", "frame",
                     "read_inputs", "batch_prep", "frames_to_host",
                     "frame_prep", "roi", "frame_store", "scan_context",
                     "loop_propose", "map_reintegrate", "map_rebuild",
-                    "trajectory"}
+                    "trajectory", "map_merge"}
 
 
 @pytest.fixture(scope="module", params=["small", "small_search"])

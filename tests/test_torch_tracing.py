@@ -1,8 +1,8 @@
 """The port's stage timers as spans: nesting and each stage's own seconds
 (`self_s`), the recorder bound while a pipeline's entry points run, the
 sync spans (`sync.<stage>`), the stages as `veloslam.<name>` annotations
-in a torch.profiler trace, `slam_run --trace-dir`, and how much of a
-per-frame run the stages cover.
+in a torch.profiler trace, `slam_run --trace-dir`, how much of a
+per-frame run the stages cover, and the map's tile merges as stages.
 
 The last two tests need a CUDA card (marker `cuda`; they skip without
 one): the stages' annotations lay no range among the card's events, and
@@ -116,6 +116,23 @@ def test_nothing_is_recorded_without_a_bound_recorder(clock):
     assert t.summary()["register"]["self_s"] == pytest.approx(1.0)
 
 
+def test_stage_opens_in_the_bound_recorder(clock):
+    """profiling.stage opens a stage of the timers bound by `recording`,
+    nested in their open stages; unbound, it records nothing."""
+    t = StageTimers(sync=lambda: None)
+    with profiling.stage("map_merge"):          # unbound
+        clock.t += 1.0
+    with profiling.recording(t):
+        with t.stage("map_update"):
+            for _ in range(2):
+                with profiling.stage("map_merge"):
+                    clock.t += 0.5
+    s = t.summary()
+    assert set(s) == {"map_update", "map_merge"}
+    assert s["map_merge"]["count"] == 2
+    assert s["map_merge"]["total_s"] == pytest.approx(1.0)
+    assert s["map_update"]["self_s"] == pytest.approx(0.0)
+
 def test_stages_are_profiler_annotations_only_while_it_records(
         monkeypatch):
     """Inside a torch.profiler recording each stage is the annotation
@@ -185,6 +202,61 @@ def test_stages_cover_a_per_frame_run(slam_run_drive):
     assert staged >= 0.9 * wall, (staged, wall, timing)
     assert staged <= wall
 
+
+def test_map_merges_are_stages_and_match_the_resort(slam_run_drive,
+                                                    monkeypatch):
+    """On slam_run's 0.6 s drive (run_offline, finalize, then a map
+    rebuild): each tile merge is one stage map_merge, inside the map's
+    stages, and none takes the re-sort (map_merge_resort).  The final map
+    equals, to the bit, the map of the same run with every merge made by
+    the re-sort."""
+    from veloslam_tpu_torch.map import voxelmap
+    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    out, _ = slam_run_drive
+    pcap = glob.glob(str(out / "*.pcap"))[0]
+    ins = [p for p in glob.glob(str(out / "*.txt"))
+           if not p.endswith("trajectory.txt")][0]
+    merge = voxelmap.MapPatchData.merge
+    made = []
+
+    def counted(self, *args, **kwargs):
+        made.append(1)
+        return merge(self, *args, **kwargs)
+
+    def run():
+        pipe = SlamPipeline(device="cpu")
+        pipe.run_offline(pcap, ins)
+        pipe.finalize()
+        pipe.rebuild_map()
+        tiles = sorted(set(pipe.map._patches) | set(pipe.map._spilled))
+        return pipe.timers.summary(), {
+            k: pipe.map._materialize(k, create=False) for k in tiles}
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)           # the two runs' device work alike
+    try:
+        with monkeypatch.context() as m:
+            m.setattr(voxelmap.MapPatchData, "merge", counted)
+            timing, tiles = run()
+        with monkeypatch.context() as m:
+            m.setattr(voxelmap.MapPatchData, "_merge_lookup",
+                      lambda self, *args: False)
+            resort_timing, resort_tiles = run()
+    finally:
+        torch.set_num_threads(threads)
+    assert timing["map_merge"]["count"] == len(made) > 0
+    assert "map_merge_resort" not in timing
+    assert timing["map_rebuild"]["count"] == 1
+    around = sum(timing[k]["total_s"] for k in
+                 ("map_update", "map_reintegrate", "map_rebuild")
+                 if k in timing)
+    assert timing["map_merge"]["total_s"] <= around
+    assert resort_timing["map_merge_resort"]["count"] == len(made)
+    assert list(tiles) == list(resort_tiles)
+    for k, p in resort_tiles.items():
+        for f in ("coords", "count", "s1", "s2"):
+            assert getattr(tiles[k], f).tobytes() == \
+                getattr(p, f).tobytes(), (k, f)
 
 @pytest.mark.cuda
 def test_stage_annotations_lay_nothing_on_the_card_timeline():

@@ -19,8 +19,10 @@ layers):
   * a resident budget with LRU spill to npz keeps host RAM bounded;
     spilled patches reload transparently on access.
 
-The host merge (`MapPatchData.merge`, an np.unique over each touched
-patch per scan) is the JAX package's, unchanged.
+The host merge (`MapPatchData.merge`) keeps each tile's rows in the
+order np.unique gives them and merges a scan by looking its voxels up
+among them, in time linear in the tile: the JAX package's re-sort of the
+whole tile per scan, to the bit (it remains the fallback).
 """
 
 from __future__ import annotations
@@ -35,10 +37,14 @@ from veloslam_tpu_torch.config import MapConfig
 from veloslam_tpu_torch.core import se3
 from veloslam_tpu_torch.map.landmarks import Landmarks
 from veloslam_tpu_torch.registration import voxel as vx
-from veloslam_tpu_torch.utils.profiling import sync_span
+from veloslam_tpu_torch.utils.profiling import stage, sync_span
 
 # Fixed chunk of scans per batched transform + voxelize pass.
 _BATCH_CHUNK = 64
+# Bits an axis of a tile merge's lookup key: three axes in an int64.
+_KEY_BITS = 21
+# The row shapes of a tile's fields: coords, count, s1, s2.
+_ROW_SHAPES = ((3,), (), (3,), (3, 3))
 
 
 def transform_build_chunk(pts, msk, q, t, origins, voxel_size, *,
@@ -56,6 +62,12 @@ def _host(x) -> np.ndarray:
         return np.asarray(x)
     with sync_span(x):
         return x.cpu().numpy()
+
+
+def _rows(a: np.ndarray) -> np.ndarray:
+    """A 1-D view of the rows of a 2-D array, one opaque item a row:
+    indexing it moves whole rows at once."""
+    return a.view(np.dtype((np.void, a.itemsize * a.shape[1])))[:, 0]
 
 
 class MapPatchData:
@@ -76,7 +88,89 @@ class MapPatchData:
               s2: np.ndarray, prune: bool = False) -> None:
         """Accumulate new voxel stats (absolute coords) into this patch.
         Negative counts subtract (downdating); with `prune`, voxels whose
-        count falls below 0.5 are dropped (fp cancellation residue)."""
+        count falls below 0.5 are dropped (fp cancellation residue).
+
+        The rows stay sorted by (x, y, z), as np.unique orders them.  The
+        scan's voxels are looked up among them by a packed key, added to
+        the rows they have or inserted where they sort: the same arrays,
+        to the bit, as re-sorting the whole tile (`_merge_resort`), which
+        stays the path for inputs the lookup does not take (a span of
+        2^21 voxels or more on an axis, a voxel twice in one scan, fields
+        not in the form a merge leaves them).  The tile's other rows are
+        copied as they are: a merge leaves no -0.0 in them for the
+        re-sort's 0 + old to turn into +0.0."""
+        with stage("map_merge"):
+            if not self._merge_lookup(coords, count, s1, s2, prune):
+                with stage("map_merge_resort"):
+                    self._merge_resort(coords, count, s1, s2, prune)
+
+    def _merge_lookup(self, coords, count, s1, s2, prune: bool) -> bool:
+        """The merge by sorted-key lookup; False, with nothing changed,
+        where it does not apply."""
+        tile = (self.coords, self.count, self.s1, self.s2)
+        scan = tuple(np.asarray(x) for x in (coords, count, s1, s2))
+        n, m = len(self.coords), len(scan[0])
+        shapes = [(k,) + w for k in (n, m) for w in _ROW_SHAPES]
+        dtypes = (np.int32, np.float64, np.float64, np.float64) * 2
+        if any(a.shape != w or a.dtype != d
+               for a, w, d in zip(tile + scan, shapes, dtypes)):
+            return False
+        if n + m == 0:
+            return True
+        # Keys relative to the common per-axis minimum, _KEY_BITS an
+        # axis, so that they order as (x, y, z) lexicographically.
+        axes = np.concatenate([self.coords, scan[0]]).T.copy()
+        lo = axes.min(axis=1)
+        if (axes.max(axis=1).astype(np.int64) - lo >= 1 << _KEY_BITS).any():
+            return False
+        rel = (axes - lo[:, None]).astype(np.int64)
+        keys = (rel[0] << 2 * _KEY_BITS) | (rel[1] << _KEY_BITS) | rel[2]
+        tkeys, skeys = keys[:n], keys[n:]
+        order = np.argsort(skeys)
+        skeys = skeys[order]
+        if (tkeys[1:] <= tkeys[:-1]).any() or \
+                (skeys[1:] <= skeys[:-1]).any():
+            return False
+        pos = np.searchsorted(tkeys, skeys)
+        hit = pos < n
+        hit[hit] = tkeys[pos[hit]] == skeys[hit]
+        new = ~hit
+        # Each scan voxel's row in the merged tile: its row in the tile,
+        # or its place after the tile's rows and the new voxels that sort
+        # before it.
+        dest = pos + np.cumsum(new) - new
+        at_hit, to_hit, to_new = pos[hit], dest[hit], dest[new]
+        total = n + len(to_new)
+        from_tile = np.ones(total, bool)
+        from_tile[to_new] = False
+        out = []
+        for old, add, shape in zip(tile, scan, _ROW_SHAPES):
+            width = int(np.prod(shape))
+            old = np.ascontiguousarray(old.reshape(n, width))
+            add = np.take(add.reshape(m, width), order, axis=0)
+            o = np.empty((total, width), old.dtype)
+            rows = _rows(o)
+            rows[from_tile] = _rows(old)
+            if old.dtype != np.int32:
+                # As np.add.at onto zeros: 0 + new, and old + new where
+                # old (never -0.0) is 0 + old already.
+                add += 0.0
+                o[to_hit] = np.take(old, at_hit, axis=0) + \
+                    np.compress(hit, add, axis=0)
+            rows[to_new] = _rows(add)[new]
+            out.append(o)
+        if prune:
+            keep = out[1][:, 0] >= 0.5
+            if not keep.all():
+                out = [_rows(o)[keep].view(o.dtype).reshape(-1, o.shape[1])
+                       for o in out]
+        self.coords, self.count, self.s1, self.s2 = (
+            o.reshape((len(o),) + shape)
+            for o, shape in zip(out, _ROW_SHAPES))
+        return True
+
+    def _merge_resort(self, coords, count, s1, s2, prune: bool) -> None:
+        """The merge by re-sorting the whole tile (np.unique)."""
         all_c = np.concatenate([self.coords, coords])
         all_n = np.concatenate([self.count, count])
         all_1 = np.concatenate([self.s1, s1])

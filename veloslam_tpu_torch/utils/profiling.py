@@ -11,12 +11,12 @@ Stages nest: each keeps its own seconds (`self_s`, its seconds less its
 child stages'), so the stages' `self_s` add up to the time spent inside
 any stage.  Code with no pipeline at hand records into the timers bound
 by `recording` (`SlamPipeline` binds its own while its entry points
-run): `sync_span` wraps one operation that blocks the host on the card
-in a stage `sync.<innermost open stage>` there, so the count of `sync.*`
-stages is the number of such waits and their seconds the host's time
-blocked in them.  While a torch profiler records, every stage is also
-the annotation `veloslam.<name>` on the profiler's clock, beside the
-card's kernels.
+run): `stage` opens a stage there, and `sync_span` wraps one operation
+that blocks the host on the card in a stage `sync.<innermost open
+stage>` there, so the count of `sync.*` stages is the number of such
+waits and their seconds the host's time blocked in them.  While a torch
+profiler records, every stage is also the annotation `veloslam.<name>`
+on the profiler's clock, beside the card's kernels.
 """
 
 from __future__ import annotations
@@ -119,6 +119,13 @@ def recording(timers):
         yield timers
     finally:
         _CURRENT.reset(token)
+
+
+def stage(name: str):
+    """The stage `name` in the timers bound by `recording`, for code with
+    no pipeline at hand; nothing is recorded when none are bound."""
+    rec = _CURRENT.get()
+    return _NOTHING if rec is None else rec.stage(name)
 
 
 def sync_span(on):
