@@ -21,7 +21,7 @@ throughout, and F stacked targets are leaves with a leading F.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -163,10 +163,13 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
                    dense: Optional[Index] = None, *,
                    iterations: int = 16, damping: float = 1e-6,
                    huber_delta: float = 0.5, max_dist: float = 2.0,
-                   reassociate_every: int = 1) -> GicpResult:
+                   reassociate_every: int = 1,
+                   association: Optional[Callable] = None) -> GicpResult:
     """Gauss-Newton point-to-plane registration of F scans.  Fixed
     iteration count; correspondences are searched every
-    `reassociate_every` iterations.
+    `reassociate_every` iterations, by `association` (arguments and
+    results as `associate`, which it defaults to; the per-frame
+    pipeline's CUDA graph of it, `cudagraphs.GicpGraphs.associate`).
 
     Three uses, as in the JAX original:
       * odometry — every frame slot against one shared map target with
@@ -187,11 +190,12 @@ def register_batch(pts, mask, target: PlaneGrid, init_poses: se3.Pose,
                      device=pts.device)
     n_hit = torch.zeros((F,), dtype=torch.int32, device=pts.device)
     H = torch.zeros((F, 6, 6), dtype=torch.float32, device=pts.device)
+    search = associate if association is None else association
     k = max(int(reassociate_every), 1)
     done = 0
     while done < iterations:
         block = min(k, iterations - done)
-        mu, n, hit0 = associate(pts, mask, pose, target, dense)
+        mu, n, hit0 = search(pts, mask, pose, target, dense)
         hit0 = hit0.view(torch.uint8)
         for _ in range(block):
             pose, H, _, err, n_hit, _ = gn_iteration(

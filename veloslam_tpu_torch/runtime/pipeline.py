@@ -92,6 +92,7 @@ from veloslam_tpu_torch.io.pcap import (PcapReader, read_lidar_packets,
 from veloslam_tpu_torch.map.voxelmap import VoxelMap
 from veloslam_tpu_torch.registration import d2d, gicp, ndt
 from veloslam_tpu_torch.registration import voxel as vx
+from veloslam_tpu_torch.registration.cudagraphs import GicpGraphs
 from veloslam_tpu_torch.runtime.framestore import FrameStore
 from veloslam_tpu_torch.runtime.fullslam import FullSlam
 from veloslam_tpu_torch.runtime.odometry import (packets_per_second,
@@ -233,6 +234,9 @@ class SlamPipeline:
         self.frames.redecoder = self._redecode_frame
         self._last_ins: Optional[se3.Pose] = None
         self._last_est: Optional[se3.Pose] = None
+        # The per-frame GICP chain's CUDA graphs, captured at the first
+        # frame registered with them (_gicp_graphs).
+        self._reg_graphs: Optional[GicpGraphs] = None
         self._kf_count_at_last_close = 0
         self._device_closed = False
         self._map_deferred = False
@@ -958,7 +962,9 @@ class SlamPipeline:
         "d2d", the scan's voxel Gaussians against the ROI's; "ndt", the
         scan's points against the ROI's voxel Gaussians (both with the
         binary-search lookup; any other name registers by GICP, as in the
-        JAX package).  The scan and the
+        JAX package).  GICP with the dense index on a CUDA card runs its
+        target build and correspondence searches as CUDA graphs
+        (`_gicp_graphs`).  The scan and the
         prior go up in one upload and the result comes back in one
         readback.  Returns None when the map holds nothing around the
         prior yet.  A multi-device session overrides it to register
@@ -969,46 +975,16 @@ class SlamPipeline:
             roi = self.map.roi_grid(float(prior_t[0]), float(prior_t[1]))
         if roi is None:
             return None
-        dev = self.device
+        gicp_kw = dict(iterations=rc.max_iterations, damping=rc.damping,
+                       huber_delta=rc.huber_delta,
+                       max_dist=rc.max_correspondence_dist,
+                       reassociate_every=rc.reassociate_every)
         with self.timers.stage("register"):
-            # Points and prior in one upload.
-            P = len(pts)
-            with sync_span(dev):
-                buf = torch.as_tensor(np.concatenate(
-                    [pts.reshape(-1), T_prior.q.numpy(), T_prior.t.numpy()]),
-                    device=dev)
-            pts_dev = buf[:3 * P].reshape(P, 3)
-            with sync_span(dev):
-                mask_dev = torch.as_tensor(mask, device=dev)
-            prior = se3.Pose(buf[3 * P:3 * P + 4], buf[3 * P + 4:])
-            if rc.method == "d2d":
-                src = vx.build_grid(pts_dev, mask_dev, roi.origin,
-                                    roi.voxel_size,
-                                    capacity=rc.scan_voxel_capacity)
-                res = d2d.register_d2d(
-                    src, roi, d2d.usable_mask(
-                        roi, min_points=rc.min_points_per_voxel),
-                    prior, iterations=rc.max_iterations,
-                    damping=rc.damping, max_dist=rc.max_correspondence_dist)
-            elif rc.method == "ndt":
-                # NDT keeps its own damping (1e-4), as in the JAX package.
-                res = ndt.register(
-                    pts_dev, mask_dev, ndt.build_ndt_grid(
-                        roi, min_points=rc.min_points_per_voxel),
-                    prior, iterations=rc.max_iterations,
-                    max_dist=rc.max_correspondence_dist)
+            graphs = self._gicp_graphs(roi, len(pts))
+            if graphs is not None:
+                res = graphs.register(pts, mask, T_prior, roi, **gicp_kw)
             else:
-                target = gicp.plane_grid_from(
-                    roi, min_points=rc.min_points_per_voxel,
-                    min_planarity=rc.min_planarity)
-                dense = (vx.build_dense_index(roi) if rc.use_dense_index
-                         else None)
-                res = gicp.register(
-                    pts_dev, mask_dev, target, prior, dense,
-                    iterations=rc.max_iterations, damping=rc.damping,
-                    huber_delta=rc.huber_delta,
-                    max_dist=rc.max_correspondence_dist,
-                    reassociate_every=rc.reassociate_every)
+                res = self._register_eager(pts, mask, T_prior, roi, gicp_kw)
             out = torch.cat([res.pose.q, res.pose.t,
                              res.n_matched.to(torch.float32)[None],
                              res.mean_error[None]])
@@ -1017,6 +993,62 @@ class SlamPipeline:
         return FrameRegistration(pose=se3.Pose(out[:4], out[4:7]),
                                  n_matched=int(out[7]),
                                  mean_error=float(out[8]))
+
+    def _gicp_graphs(self, roi: vx.VoxelGrid,
+                     n_points: int) -> Optional[GicpGraphs]:
+        """The CUDA graphs of the frame's GICP chain where they apply,
+        GICP with the dense index on a CUDA card (made at the first frame
+        registered, which captures them); None elsewhere, which registers
+        eagerly."""
+        rc = self.cfg.registration
+        if (self.device.type != "cuda" or rc.method in ("d2d", "ndt")
+                or not rc.use_dense_index):
+            return None
+        if self._reg_graphs is None:
+            self._reg_graphs = GicpGraphs(
+                roi, n_points, min_points=rc.min_points_per_voxel,
+                min_planarity=rc.min_planarity)
+        return self._reg_graphs
+
+    def _register_eager(self, pts: np.ndarray, mask: np.ndarray,
+                        T_prior: se3.Pose, roi: vx.VoxelGrid, gicp_kw: dict):
+        """`_register_frame`'s registration launch by launch, by method;
+        returns the method's result on the device."""
+        rc = self.cfg.registration
+        dev = self.device
+        # Points and prior in one upload.
+        P = len(pts)
+        with sync_span(dev):
+            buf = torch.as_tensor(np.concatenate(
+                [pts.reshape(-1), T_prior.q.numpy(), T_prior.t.numpy()]),
+                device=dev)
+        pts_dev = buf[:3 * P].reshape(P, 3)
+        with sync_span(dev):
+            mask_dev = torch.as_tensor(mask, device=dev)
+        prior = se3.Pose(buf[3 * P:3 * P + 4], buf[3 * P + 4:])
+        if rc.method == "d2d":
+            src = vx.build_grid(pts_dev, mask_dev, roi.origin,
+                                roi.voxel_size,
+                                capacity=rc.scan_voxel_capacity)
+            return d2d.register_d2d(
+                src, roi, d2d.usable_mask(
+                    roi, min_points=rc.min_points_per_voxel),
+                prior, iterations=rc.max_iterations,
+                damping=rc.damping, max_dist=rc.max_correspondence_dist)
+        if rc.method == "ndt":
+            # NDT keeps its own damping (1e-4), as in the JAX package.
+            return ndt.register(
+                pts_dev, mask_dev, ndt.build_ndt_grid(
+                    roi, min_points=rc.min_points_per_voxel),
+                prior, iterations=rc.max_iterations,
+                max_dist=rc.max_correspondence_dist)
+        target = gicp.plane_grid_from(
+            roi, min_points=rc.min_points_per_voxel,
+            min_planarity=rc.min_planarity)
+        dense = (vx.build_dense_index(roi) if rc.use_dense_index
+                 else None)
+        return gicp.register(pts_dev, mask_dev, target, prior, dense,
+                             **gicp_kw)
 
     def _handle_frame(self, frame: Dict, start_us: int,
                       source: Optional[tuple] = None) -> None:
