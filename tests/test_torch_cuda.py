@@ -426,6 +426,36 @@ def test_integrate_scans_batch_on_card_matches_cpu(card):
                 atol=1e-4 * max(np.abs(want).max(), 1.0), err_msg=f)
 
 
+def test_device_transform_equals_host_transform_on_card(card):
+    """The map's one device step on the card: the 70 rotated scans over
+    several tiles, then the first 10 downdated (a 64-scan chunk and a
+    short one), transformed on the card in one integrate_scans_batch
+    call, against each scan transformed on the host (se3.apply on the
+    CPU) and integrated alone through integrate_points on the card: the
+    same tiles, coords, counts and moment sums to the bit."""
+    from torch_helpers import map_scans
+    from veloslam_tpu_torch.config import MapConfig
+    from veloslam_tpu_torch.map.voxelmap import VoxelMap
+    pts, msk, q, t = map_scans()
+    idx = np.concatenate([np.arange(len(pts)), np.arange(10)])
+    signs = np.where(np.arange(len(idx)) < len(pts), 1.0, -1.0)
+    batch = VoxelMap(MapConfig(), device=card)
+    batch.integrate_scans_batch(pts[idx], msk[idx], q[idx], t[idx],
+                                signs=signs)
+    each = VoxelMap(MapConfig(), device=card)
+    for i, sign in zip(idx, signs):
+        world = se3.apply(se3.Pose(torch.as_tensor(q[i]),
+                                   torch.as_tensor(t[i])),
+                          torch.as_tensor(pts[i])).numpy()
+        each.integrate_points(world, msk[i], t[i], sign=sign)
+    a, b = (dict(m._patches) for m in (batch, each))
+    assert sorted(a) == sorted(b) and len(b) >= 4
+    for k in b:
+        for f in ("coords", "count", "s1", "s2"):
+            assert getattr(a[k], f).tobytes() == getattr(b[k], f).tobytes(), \
+                (k, f)
+
+
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 

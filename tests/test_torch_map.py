@@ -1,7 +1,7 @@
 """Parity of the port's tiled voxel map with the JAX package.
 
 The same seeded scans go through both packages' VoxelMap: 70 frame-local
-scans of 512 points (two 64-scan chunks, the second padded) at poses
+scans of 512 points (a 64-scan chunk and a short one) at poses
 spread over ±150 m, so they fall into several 100 m tiles.  Tiles, voxel
 coordinates and counts must be equal; the moment sums s1, s2 within
 1e-4 of the largest magnitude (float32 voxel moments summed in another
@@ -10,8 +10,12 @@ order).  Downdating every scan (signs −1) empties the map in both; a
 scans through integrate_points / deintegrate_points; the tile-ownership
 filter; save and load.  The ROI assembly of the per-frame pipeline
 (roi_grid) from the same tiles in both packages: keys and counts exact,
-means and covariances within 1e-6 relative.  A stream downdate (the
-per-frame pipeline's update_map_incremental) restores a tile to the bit.
+means and covariances within 1e-6 relative.  Every entry reaches the
+tiles through the map's one device step: a scan through
+integrate_points from points transformed on the host, or alone, equals
+it in a batch of scans, to the bit; a downdate of moved keyframes (the
+per-frame pipeline's update_map_incremental) is the same single-scan
+integrations in order, to the bit.
 """
 
 import numpy as np
@@ -30,6 +34,15 @@ def patches(m):
     """{tile: patch} over resident and spilled tiles (reloading them)."""
     keys = sorted(set(m._patches) | set(m._spilled))
     return {k: m._materialize(k, create=False) for k in keys}
+
+
+def same_bytes(a, b):
+    """Two port maps with the same tiles, and in each the same bytes of
+    coords, count, s1 and s2."""
+    pa, pb = patches(a), patches(b)
+    return list(pa) == list(pb) and all(
+        getattr(pa[k], f).tobytes() == getattr(pb[k], f).tobytes()
+        for k in pb for f in ("coords", "count", "s1", "s2"))
 
 
 def assert_same_map(ours, ref):
@@ -92,22 +105,51 @@ def test_spill_and_reload(built, tmp_path):
 
 
 def test_integrate_points_and_deintegrate(built):
-    """Single scans, the port's through the pipeline's per-scan hook
-    (SlamPipeline._integrate_scan) into its map."""
-    from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    """Single world-frame scans through integrate_points and
+    deintegrate_points (the map's device step at the identity pose)
+    against the JAX package's."""
     _, _, (pts, msk, q, t) = built
-    pipe = SlamPipeline(device="cpu")
+    ours = VoxelMap(MapConfig(), device="cpu")
     ref = JVoxelMap(JMapConfig())
     world = pts[:3] + t[:3, None]          # three scans, identity rotation
-    for k in range(3):
-        pipe._integrate_scan(world[k], msk[k], t[k])
-        ref.integrate_points(world[k], msk[k], t[k])
-    pipe._integrate_scan(world[1], msk[1], t[1], sign=-1.0)
-    ref.deintegrate_points(world[1], msk[1], t[1])
-    assert_same_map(pipe.map, ref)
-    pipe.map.deintegrate_points(world[0], msk[0], t[0])
-    ref.deintegrate_points(world[0], msk[0], t[0])
-    assert_same_map(pipe.map, ref)
+    for m in (ours, ref):
+        for k in range(3):
+            m.integrate_points(world[k], msk[k], t[k])
+        m.deintegrate_points(world[1], msk[1], t[1])
+    assert_same_map(ours, ref)
+    for m in (ours, ref):
+        m.deintegrate_points(world[0], msk[0], t[0])
+    assert_same_map(ours, ref)
+
+
+@pytest.mark.parametrize("alone", ["integrate_points", "single_scans"])
+def test_a_scan_alone_equals_it_in_a_batch_to_the_bit(built, alone):
+    """The 70 rotated scans over several tiles, then the first 10
+    downdated (80 scans: a 64-scan chunk and a short one), in one
+    integrate_scans_batch call, against each scan integrated alone in
+    the same order: through integrate_scans_batch at its pose
+    (single_scans), or transformed on the host (se3.apply) and through
+    integrate_points about its position.  The same tiles, to the bit."""
+    from veloslam_tpu_torch.core import se3
+    _, _, (pts, msk, q, t) = built
+    idx = np.concatenate([np.arange(len(pts)), np.arange(10)])
+    signs = np.where(np.arange(len(idx)) < len(pts), 1.0, -1.0)
+    batch = VoxelMap(MapConfig(), device="cpu")
+    batch.integrate_scans_batch(pts[idx], msk[idx], q[idx], t[idx],
+                                signs=signs)
+    each = VoxelMap(MapConfig(), device="cpu")
+    for i, sign in zip(idx, signs):
+        if alone == "single_scans":
+            sl = slice(i, i + 1)
+            each.integrate_scans_batch(pts[sl], msk[sl], q[sl], t[sl],
+                                       signs=[sign])
+        else:
+            world = se3.apply(se3.Pose(torch.as_tensor(q[i]),
+                                       torch.as_tensor(t[i])),
+                              torch.as_tensor(pts[i])).numpy()
+            each.integrate_points(world, msk[i], t[i], sign=sign)
+    assert batch.n_patches >= 4
+    assert same_bytes(batch, each)
 
 
 def test_tile_filter_keeps_owned_tiles(built):
@@ -181,50 +223,64 @@ def test_roi_grid_matches_jax(built, xy, cap):
 
 def test_stream_downdate_restores_tiles_to_the_bit():
     """tests/test_map.py::test_stream_downdate_is_exact_inverse on the
-    port: keyframe 1, integrated through the per-frame path (se3.apply +
-    integrate_points), moves 2 m after a graph solve;
-    update_map_incremental subtracts it at the old pose and adds it at
-    the new one.  Every tile then equals, to the bit, a map where
-    keyframe 1 was integrated at the new pose directly."""
-    from veloslam_tpu_torch.core import se3
+    port, with two moved keyframes that share voxels.  Three keyframe
+    scans enter the map as the per-frame pipeline integrates a frame (one
+    scan at its pose); a graph solve moves keyframes 1 and 2, and
+    update_map_incremental subtracts each at its old pose and adds it at
+    its new one.  Every tile then equals, to the bit, the same
+    single-scan integrations made in the order keyframe 1 out, in,
+    keyframe 2 out, in (and not the order 1 out, 2 out, 1 in, 2 in); its
+    voxels and counts equal a map with keyframes 1 and 2 integrated at
+    their new poses directly."""
     from veloslam_tpu_torch.runtime.pipeline import SlamPipeline
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-2, 2, (1500, 3)).astype(np.float32)
+    # Half the points at voxel boundaries, where rounding would show.
+    pts[:750] = np.round(pts[:750]) + rng.choice(
+        [0.0, 1e-7, -1e-7], size=(750, 3)).astype(np.float32)
+    mask = np.ones(1500, bool)
 
-    def build(move):
-        pipe = SlamPipeline(device="cpu")
-        rng = np.random.default_rng(7)
-        pts = rng.uniform(-5, 5, (1500, 3)).astype(np.float32)
-        # Points at voxel boundaries, where rounding would show.
-        pts = np.round(pts) + rng.choice(
-            [0.0, 1e-7, -1e-7], size=pts.shape).astype(np.float32)
-        mask = np.ones(1500, bool)
-        for k, tx in enumerate((0.0, 20.0)):
-            q = np.array([1.0, 0, 0, 0], np.float32)
-            pose_t = np.array([tx, 0.0, 0.0], np.float32)
-            if move and k == 1:
-                pose_t[1] += 2.0
-            pw = se3.apply(se3.Pose(torch.as_tensor(q),
-                                    torch.as_tensor(pose_t)),
-                           torch.as_tensor(pts)).numpy()
-            pipe._integrate_scan(pw, mask, pose_t)
-            pipe.graph.add_pose(q, pose_t)
-            pipe.keyframe_scans.append((pts.copy(), mask.copy()))
-            pipe.keyframe_times.append(k)
-            pipe._kf_map_pose.append((q, pose_t.copy()))
-            pipe._kf_integrated_via.append("stream")
-        return pipe
+    def pose(yaw, x, y):
+        return (np.array([np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)],
+                         np.float32), np.array([x, y, 0.0], np.float32))
 
-    a = build(move=False)
-    q, t = a.graph.poses()
-    t2 = t.copy()
-    t2[1, 1] += 2.0
-    a.graph.update_from(q, t2)
-    assert a.update_map_incremental() == 1
-    assert a.update_map_incremental() == 0          # nothing moved since
-    b = build(move=True)
-    pa, pb = patches(a.map), patches(b.map)
-    assert [k for k, p in pa.items() if p.n_voxels] == list(pb)
-    for k, p in pb.items():
-        for f in ("coords", "count", "s1", "s2"):
+    def frame(m, p, sign=1.0):
+        m.integrate_scans_batch(pts[None], mask[None], p[0][None],
+                                p[1][None], signs=[sign])
+
+    # Keyframes 1 and 2 overlap near the origin, where the moments'
+    # float64 sums round, so the order of the merges shows in the bits.
+    old = [pose(0.0, 50.0, 0.0), pose(0.3, 0.0, 0.0), pose(-0.2, 0.7, 0.3)]
+    new = [old[0], pose(0.31, 0.0, 0.2), pose(-0.2, 0.8, 0.45)]
+    pipe = SlamPipeline(device="cpu")
+    for k, p in enumerate(old):
+        frame(pipe.map, p)
+        pipe.graph.add_pose(*p)
+        pipe.keyframe_scans.append((pts.copy(), mask.copy()))
+        pipe.keyframe_times.append(k)
+        pipe._kf_map_pose.append((p[0], p[1].copy()))
+    pipe.graph.update_from(np.stack([q for q, _ in new]),
+                           np.stack([t for _, t in new]))
+    assert pipe.update_map_incremental() == 2
+    assert pipe.update_map_incremental() == 0       # nothing moved since
+
+    def replay(steps):
+        m = VoxelMap(MapConfig(), device="cpu")
+        for p, sign in [(p, 1.0) for p in old] + steps:
+            frame(m, p, sign)
+        return m
+
+    out1, in1, out2, in2 = ((old[1], -1.0), (new[1], 1.0), (old[2], -1.0),
+                            (new[2], 1.0))
+    assert same_bytes(pipe.map, replay([out1, in1, out2, in2]))
+    assert not same_bytes(pipe.map, replay([out1, out2, in1, in2]))
+    direct = VoxelMap(MapConfig(), device="cpu")
+    for p in new:
+        frame(direct, p)
+    pa, pd = patches(pipe.map), patches(direct)
+    assert [k for k, p in pa.items() if p.n_voxels] == list(pd)
+    for k, p in pd.items():
+        for f in ("coords", "count"):
             assert getattr(pa[k], f).tobytes() == getattr(p, f).tobytes(), \
                 (k, f)
 

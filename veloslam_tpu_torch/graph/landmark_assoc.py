@@ -50,12 +50,7 @@ def _posts_from_host_grid(keys, count, mean, cov, voxel_size: float,
     occ = keys != vx.INVALID_KEY
     if not occ.any():
         return np.zeros((0, 3))
-    keys = keys[occ]
-    bits, half = 10, 512
-    axis_mask = (1 << bits) - 1
-    coords = np.stack([(keys >> (2 * bits)) & axis_mask,
-                       (keys >> bits) & axis_mask,
-                       keys & axis_mask], -1) - half
+    coords = vx.unpack_coords_np(keys[occ])
     posts = extract_posts(coords, count[occ], mean[occ], cov[occ],
                           voxel_size)
     if len(posts) == 0:
@@ -89,12 +84,11 @@ def _host_voxel_stats(pts: np.ndarray, mask: np.ndarray,
     """Numpy voxel count / mean / covariance of one scan (coordinates
     about a zero origin, 10-bit packed like voxel.pack_keys): returns
     (integer coords (V, 3), count, mean, cov), float32."""
-    half = 512
     p = pts[mask]
-    g = np.floor(p / np.float32(voxel_size)).astype(np.int64) + half
-    ok = np.all((g >= 0) & (g < 1024), axis=1)
-    p, g = p[ok], g[ok]
-    keys = (g[:, 0] << 20) | (g[:, 1] << 10) | g[:, 2]
+    keys = vx.pack_coords_np(
+        np.floor(p / np.float32(voxel_size)).astype(np.int64))
+    ok = keys != vx.INVALID_KEY
+    p, keys = p[ok], keys[ok]
     uk, inv, count = np.unique(keys, return_inverse=True,
                                return_counts=True)
     V = len(uk)
@@ -105,8 +99,7 @@ def _host_voxel_stats(pts: np.ndarray, mask: np.ndarray,
     s2 = np.zeros((V, 3, 3))
     np.add.at(s2, inv, d[:, :, None] * d[:, None, :])
     cov = s2 / count[:, None, None]
-    coords = np.stack([(uk >> 20) & 1023, (uk >> 10) & 1023,
-                       uk & 1023], -1) - half
+    coords = vx.unpack_coords_np(uk)
     return coords, count.astype(np.float32), mean.astype(np.float32), \
         cov.astype(np.float32)
 
@@ -121,14 +114,15 @@ def extract_scan_posts_batch(pts: np.ndarray, mask: np.ndarray,
     K = len(pts)
     if K == 0:
         return []
-    half = 512
     p_all = np.asarray(pts, np.float32).reshape(-1, 3)
     m_all = np.asarray(mask, bool).reshape(-1)
     scan = np.repeat(np.arange(K, dtype=np.int64), pts.shape[1])
-    g = np.floor(p_all / np.float32(voxel_size)).astype(np.int64) + half
-    ok = m_all & np.all((g >= 0) & (g < 1024), axis=1)
-    p, g, scan = p_all[ok], g[ok], scan[ok]
-    keys = (scan << 30) | (g[:, 0] << 20) | (g[:, 1] << 10) | g[:, 2]
+    keys = vx.pack_coords_np(
+        np.floor(p_all / np.float32(voxel_size)).astype(np.int64))
+    ok = m_all & (keys != vx.INVALID_KEY)
+    p, keys, scan = p_all[ok], keys[ok], scan[ok]
+    # The scan index above the 30 key bits.
+    keys = (scan << 30) | keys
     uk, inv, count = np.unique(keys, return_inverse=True,
                                return_counts=True)
     V = len(uk)
@@ -139,8 +133,7 @@ def extract_scan_posts_batch(pts: np.ndarray, mask: np.ndarray,
     s2 = np.zeros((V, 3, 3))
     np.add.at(s2, inv, d[:, :, None] * d[:, None, :])
     cov = s2 / count[:, None, None]
-    coords = np.stack([(uk >> 20) & 1023, (uk >> 10) & 1023,
-                       uk & 1023], -1) - half
+    coords = vx.unpack_coords_np(uk)
     vk = (uk >> 30).astype(np.int64)            # owning scan per voxel
     count = count.astype(np.float32)
     mean = mean.astype(np.float32)

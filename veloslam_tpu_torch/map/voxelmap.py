@@ -8,10 +8,14 @@ layers):
     stores sufficient statistics per occupied voxel (count, Σp, Σppᵀ
     relative to the voxel centre) as host numpy, merged by absolute
     integer voxel coordinates;
-  * scans are voxelized on the map's device: a chunk of 64 posed scans is
-    transformed and built into 64 stacked grids in one batched pass
-    (se3.apply + registration.voxel.build_grid), read back once, and
-    merged on the host;
+  * every scan enters the tiles through one device step (`_integrate`):
+    up to `_BATCH_CHUNK` posed scans go up in one packed upload, are
+    transformed and built into stacked grids in one batched pass
+    (se3.apply + registration.voxel.build_grid), come back in one packed
+    readback, and are merged on the host scan by scan, in the order
+    given.  Eager torch rounds each op once, so a scan's grid is the same
+    whatever else shares its chunk, and the device transform equals the
+    same float32 ops on the host;
   * `roi_grid` assembles the patches within ±roi_range of a query point
     into one fixed-capacity VoxelGrid on the map's device, keys packed
     relative to the query (host numpy, one upload): the per-frame
@@ -39,7 +43,7 @@ from veloslam_tpu_torch.map.landmarks import Landmarks
 from veloslam_tpu_torch.registration import voxel as vx
 from veloslam_tpu_torch.utils.profiling import stage, sync_span
 
-# Fixed chunk of scans per batched transform + voxelize pass.
+# Most scans per device step: bounds the step's device memory.
 _BATCH_CHUNK = 64
 # Bits an axis of a tile merge's lookup key: three axes in an int64.
 _KEY_BITS = 21
@@ -55,13 +59,6 @@ def transform_build_chunk(pts, msk, q, t, origins, voxel_size, *,
     pw = se3.apply(se3.Pose(q[:, None], t[:, None]), pts)
     return vx.build_grid(pw, msk, origins, voxel_size.expand(pts.shape[0]),
                          capacity=capacity)
-
-
-def _host(x) -> np.ndarray:
-    if not isinstance(x, torch.Tensor):
-        return np.asarray(x)
-    with sync_span(x):
-        return x.cpu().numpy()
 
 
 def _rows(a: np.ndarray) -> np.ndarray:
@@ -272,30 +269,23 @@ class VoxelMap:
 
     def integrate_grid(self, grid: vx.VoxelGrid, sign: float = 1.0,
                        tile_filter=None) -> None:
-        """Merge a scan VoxelGrid (tensors or numpy leaves) into the map
-        tiles.  With sign=-1 (count already negated by the caller) the
-        merge subtracts statistics and prunes emptied voxels.
-        `tile_filter` ((tx, ty) -> bool) keeps only accepted tiles: the
-        tile-ownership hook of a multi-device session."""
-        keys = _host(grid.keys)
+        """Merge a scan VoxelGrid (numpy leaves) into the map tiles.  With
+        sign=-1 (count already negated by the caller) the merge subtracts
+        statistics and prunes emptied voxels.  `tile_filter` ((tx, ty) ->
+        bool) keeps only accepted tiles: the tile-ownership hook of a
+        multi-device session."""
+        keys = np.asarray(grid.keys)
         occ = keys != vx.INVALID_KEY
         if not occ.any():
             return
-        keys = keys[occ]
-        count = _host(grid.count)[occ].astype(np.float64)
-        mean = _host(grid.mean)[occ].astype(np.float64)
-        cov = _host(grid.cov)[occ].astype(np.float64)
-        origin = _host(grid.origin).astype(np.float64)
-        with sync_span(grid.voxel_size):
-            vs = float(grid.voxel_size)
-        # Unpack keys to absolute integer voxel coords.
-        bits = 10
-        half = 1 << (bits - 1)
-        axis_mask = (1 << bits) - 1
-        g = np.stack([(keys >> (2 * bits)) & axis_mask,
-                      (keys >> bits) & axis_mask,
-                      keys & axis_mask], -1) - half
-        coords = (g + np.floor(origin / vs)).astype(np.int32)
+        count = np.asarray(grid.count)[occ].astype(np.float64)
+        mean = np.asarray(grid.mean)[occ].astype(np.float64)
+        cov = np.asarray(grid.cov)[occ].astype(np.float64)
+        origin = np.asarray(grid.origin).astype(np.float64)
+        vs = float(grid.voxel_size)
+        # Keys → absolute integer voxel coords.
+        coords = (vx.unpack_coords_np(keys[occ])
+                  + np.floor(origin / vs)).astype(np.int32)
         centers = (coords + 0.5) * vs
         m_rel = mean - centers
         s1 = m_rel * count[:, None]
@@ -315,83 +305,79 @@ class VoxelMap:
             patch.merge(coords[sel], count[sel], s1[sel], s2[sel],
                         prune=(sign < 0))
 
+    def _integrate(self, pts, msk, q, t, origins, signs,
+                   tile_filter) -> None:
+        """The one device step every scan enters the tiles by: K scans
+        `pts` (K, P, 3) with `msk` (K, P), world poses `q`/`t` (K, 4)/
+        (K, 3), key origins (K, 3) on the voxel lattice and signs (K,),
+        in chunks of at most `_BATCH_CHUNK` scans.  A chunk is one
+        float32 upload (points, mask as 0/1, q, t, origins, the voxel
+        size), `transform_build_chunk`, and one int32 readback (per scan
+        its keys, then the bits of its count, mean and cov); then each
+        scan is merged, in the order given."""
+        K = len(pts)
+        P = int(np.shape(pts)[1]) if K else 0
+        if P == 0:
+            return
+        vs = np.float32(self.cfg.voxel_size)
+        # A scan of P points occupies at most P voxels.
+        cap = min(self.cfg.voxels_per_patch, P)
+        origins = np.asarray(origins, np.float32)
+        dev = self.device
+        for s0 in range(0, K, _BATCH_CHUNK):
+            sl = slice(s0, min(s0 + _BATCH_CHUNK, K))
+            parts = [pts[sl], msk[sl], q[sl], t[sl], origins[sl], vs]
+            buf = np.concatenate([np.asarray(x, np.float32).reshape(-1)
+                                  for x in parts])
+            with sync_span(dev):
+                up = torch.as_tensor(buf, device=dev)
+            n = sl.stop - s0
+            p_d, m_d, q_d, t_d, o_d, vs_d = torch.split(
+                up, [n * P * 3, n * P, n * 4, n * 3, n * 3, 1])
+            g = transform_build_chunk(
+                p_d.view(n, P, 3), m_d.view(n, P) != 0, q_d.view(n, 4),
+                t_d.view(n, 3), o_d.view(n, 3), vs_d, capacity=cap)
+            # Integer copies move the float bits as they are.
+            packed = torch.cat([x.reshape(n, -1) for x in (
+                g.keys, g.count.view(torch.int32), g.mean.view(torch.int32),
+                g.cov.view(torch.int32))], 1)
+            with sync_span(packed):
+                host = packed.cpu().numpy()
+            keys, stats = host[:, :cap], host[:, cap:].view(np.float32)
+            for k in range(n):
+                sign = float(signs[s0 + k])
+                self.integrate_grid(vx.VoxelGrid(
+                    keys=keys[k], count=stats[k, :cap] * sign,
+                    mean=stats[k, cap:4 * cap].reshape(cap, 3),
+                    cov=stats[k, 4 * cap:].reshape(cap, 3, 3),
+                    origin=origins[s0 + k], voxel_size=vs),
+                    sign=sign, tile_filter=tile_filter)
+
+    def _origins(self, centers) -> np.ndarray:
+        """Key origins (K, 3): the scan centres snapped down to the voxel
+        lattice, so packed keys map exactly onto absolute voxel coords."""
+        vs = self.cfg.voxel_size
+        return np.floor(np.asarray(centers, np.float64) / vs) * vs
+
     def integrate_points(self, pts_world: np.ndarray, mask: np.ndarray,
                          center: np.ndarray, sign: float = 1.0,
                          tile_filter=None) -> None:
-        """Build one scan's grid around `center` on the device, then
-        integrate it.  The grid origin is snapped to the voxel lattice so
-        packed keys map exactly onto absolute voxel coordinates.
-        `sign=-1` subtracts the scan's sufficient statistics."""
-        vs = self.cfg.voxel_size
-        origin = np.floor(np.asarray(center, np.float64) / vs) * vs
-        dev = self.device
-        with sync_span(dev):
-            pts_dev = torch.as_tensor(np.asarray(pts_world, np.float32),
-                                      device=dev)
-        with sync_span(dev):
-            mask_dev = torch.as_tensor(np.asarray(mask, bool), device=dev)
-        with sync_span(dev):
-            origin_dev = torch.as_tensor(origin.astype(np.float32),
-                                         device=dev)
-        with sync_span(dev):
-            vs_dev = torch.tensor(vs, dtype=torch.float32, device=dev)
-        grid = vx.build_grid(pts_dev, mask_dev, origin_dev, vs_dev,
-                             capacity=self.cfg.voxels_per_patch)
-        if sign != 1.0:
-            grid = grid._replace(count=grid.count * sign)
-        self.integrate_grid(grid, sign=sign, tile_filter=tile_filter)
+        """Integrate one world-frame scan (P, 3), its grid keyed about
+        `center`: the device step at the identity pose.  `sign=-1`
+        subtracts the scan's sufficient statistics."""
+        self._integrate(np.asarray(pts_world)[None], np.asarray(mask)[None],
+                        np.array([[1.0, 0.0, 0.0, 0.0]]), np.zeros((1, 3)),
+                        self._origins(np.asarray(center)[None]), [sign],
+                        tile_filter)
 
     def integrate_scans_batch(self, pts, msk, q, t, signs=None,
                               tile_filter=None) -> None:
         """Integrate K posed scans: `pts` (K, P, 3) frame-local points with
         `msk` (K, P), `q`/`t` (K, 4)/(K, 3) world poses, optional per-scan
-        `signs` (−1 downdates).  Each chunk of `_BATCH_CHUNK` scans (the
-        last padded with empty scans at identity poses) is transformed and
-        voxelized in one batched pass on the device and read back once."""
-        K = len(pts)
-        if K == 0:
-            return
-        vs = self.cfg.voxel_size
-        signs = (np.ones(K, np.float64) if signs is None
-                 else np.asarray(signs, np.float64))
-        origins = np.floor(np.asarray(t, np.float64)[:, :3] / vs) * vs
-        # A scan of P points occupies at most P voxels.
-        cap = min(self.cfg.voxels_per_patch, int(pts.shape[1]))
-        ch = _BATCH_CHUNK
-        pts = np.asarray(pts, np.float32)
-        msk = np.asarray(msk, bool)
-        q = np.asarray(q, np.float32)
-        t = np.asarray(t, np.float32)
-        dev = self.device
-        with sync_span(dev):
-            vs_dev = torch.tensor(vs, dtype=torch.float32, device=dev)
-        for s0 in range(0, K, ch):
-            n = min(ch, K - s0)
-            pad = ch - n
-
-            def padded(a, s0=s0, n=n, pad=pad):
-                sl = a[s0:s0 + n]
-                if pad:
-                    sl = np.concatenate(
-                        [sl, np.zeros((pad,) + a.shape[1:], a.dtype)])
-                with sync_span(dev):
-                    return torch.as_tensor(sl, device=dev)
-
-            pq = padded(q)
-            if pad:
-                pq[n:, 0] = 1.0          # identity quats in pad slots
-            grids = transform_build_chunk(
-                padded(pts), padded(msk), pq, padded(t),
-                padded(origins.astype(np.float32)), vs_dev, capacity=cap)
-            host = vx.VoxelGrid(*(_host(x[:n]) for x in grids))
-            for k in range(n):
-                g = vx.VoxelGrid(
-                    keys=host.keys[k],
-                    count=host.count[k] * signs[s0 + k],
-                    mean=host.mean[k], cov=host.cov[k],
-                    origin=host.origin[k], voxel_size=host.voxel_size[k])
-                self.integrate_grid(g, sign=float(signs[s0 + k]),
-                                    tile_filter=tile_filter)
+        `signs` (−1 downdates), each keyed about its pose's position and
+        merged in the order given."""
+        signs = np.ones(len(pts)) if signs is None else signs
+        self._integrate(pts, msk, q, t, self._origins(t), signs, tile_filter)
 
     def deintegrate_points(self, pts_world: np.ndarray, mask: np.ndarray,
                            center: np.ndarray) -> None:
@@ -478,14 +464,11 @@ class VoxelMap:
 
         origin = np.array([np.floor(x / vs) * vs, np.floor(y / vs) * vs, 0.0],
                           np.float32)
-        bits = 10
-        half = 1 << (bits - 1)
-        rel = coords - np.floor(origin / vs).astype(np.int64) + half
-        ok = np.all((rel >= 0) & (rel < (1 << bits)), axis=1)
-        rel, count, s1, s2, centers = (rel[ok], count[ok], s1[ok], s2[ok],
-                                       centers[ok])
-        keys = ((rel[:, 0] << (2 * bits)) | (rel[:, 1] << bits)
-                | rel[:, 2]).astype(np.int64)
+        keys = vx.pack_coords_np(coords
+                                 - np.floor(origin / vs).astype(np.int64))
+        ok = keys != vx.INVALID_KEY
+        keys, count, s1, s2, centers = (keys[ok], count[ok], s1[ok], s2[ok],
+                                        centers[ok])
         order = np.argsort(keys)
         n = min(len(order), cap)
         denom = np.maximum(count[order], 1.0)[:, None]

@@ -102,13 +102,10 @@ def _pack_keys_np(pts: np.ndarray, mask: np.ndarray, origin: np.ndarray,
     bit-for-bit: a point whose coordinate rounds differently across
     precisions would be routed to a different shard than the one whose
     haloed table contains its device-packed voxel."""
-    half = 2 ** (bits - 1)
     g = np.floor((np.asarray(pts, np.float32) - np.asarray(origin,
                                                            np.float32))
-                 / np.float32(voxel_size)).astype(np.int64) + half
-    in_range = np.all((g >= 0) & (g < 2 ** bits), axis=-1)
-    key = (g[..., 0] << (2 * bits)) | (g[..., 1] << bits) | g[..., 2]
-    return np.where(np.asarray(mask, bool) & in_range, key,
+                 / np.float32(voxel_size)).astype(np.int64)
+    return np.where(np.asarray(mask, bool), vx.pack_coords_np(g, bits),
                     np.int64(vx.INVALID_KEY))
 
 

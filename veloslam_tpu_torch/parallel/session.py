@@ -35,7 +35,7 @@ class DistributedSlamSession(SlamPipeline):
     """SlamPipeline whose map is partitioned across ranks.
 
     Overrides the pipeline's multi-device primitives:
-      * `_integrate_scan` / `_tile_filter` keep only this rank's tiles;
+      * `_tile_filter` keeps only this rank's tiles in the map;
       * `_register_frame` registers against the map sharded over the
         ranks' owned rows;
       * `_solve_graph` / `_solve_graph_landmarks` run the edge-sharded
@@ -67,12 +67,6 @@ class DistributedSlamSession(SlamPipeline):
 
     def owns_tile(self, tx: int, ty: int) -> bool:
         return int(dist.tile_owner(tx, ty, self.n_procs)) == self.pid
-
-    def _integrate_scan(self, pts_world, mask, center, map_obj=None,
-                        sign: float = 1.0) -> None:
-        (map_obj or self.map).integrate_points(
-            pts_world, mask, center=center, sign=sign,
-            tile_filter=self.owns_tile)
 
     def _tile_filter(self):
         return self.owns_tile

@@ -23,6 +23,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from veloslam_tpu_torch.core.segment import segment_min, segment_sum_sorted
@@ -77,6 +78,26 @@ def unpack_keys(keys, origin, voxel_size, bits: int = 10):
     """Packed keys → voxel centre coordinates (..., 3)."""
     g = _grid_coords(keys, bits).to(torch.float32) - 2 ** (bits - 1)
     return origin + (g + 0.5) * voxel_size
+
+
+def pack_coords_np(g, bits: int = 10) -> np.ndarray:
+    """Host numpy: integer voxel coordinates about a key origin (..., 3)
+    → int64 packed keys in pack_keys' format; INVALID_KEY where an axis
+    lies outside [−2^(bits−1), 2^(bits−1))."""
+    half = 1 << (bits - 1)
+    g = np.asarray(g, np.int64) + half
+    in_range = np.all((g >= 0) & (g < 2 * half), axis=-1)
+    key = (g[..., 0] << (2 * bits)) | (g[..., 1] << bits) | g[..., 2]
+    return np.where(in_range, key, np.int64(INVALID_KEY))
+
+
+def unpack_coords_np(keys, bits: int = 10) -> np.ndarray:
+    """Host numpy: packed keys (not INVALID_KEY) → integer voxel
+    coordinates about the key origin (..., 3), in the keys' dtype."""
+    keys = np.asarray(keys)
+    m = (1 << bits) - 1
+    return np.stack([(keys >> (2 * bits)) & m, (keys >> bits) & m,
+                     keys & m], axis=-1) - (1 << (bits - 1))
 
 
 def _segments(sk: torch.Tensor, capacity: int):

@@ -212,12 +212,10 @@ class SlamPipeline:
         self.keyframe_scans: List[Tuple[np.ndarray, np.ndarray]] = []
         self.keyframe_descs: List[np.ndarray] = []   # scan-context (R, S)
         self.keyframe_times: List[int] = []
-        # Pose each keyframe's scan was integrated into the map with, and
-        # how ("stream": per-frame integrate_points; "batch":
-        # integrate_scans_batch): a downdate replays the same path at
-        # that pose, so the subtraction is the exact inverse.
+        # Pose each keyframe's scan was integrated into the map with: a
+        # downdate builds the scan at that pose again, so the subtraction
+        # is the exact inverse.
         self._kf_map_pose: List[Tuple[np.ndarray, np.ndarray]] = []
-        self._kf_integrated_via: List[str] = []
         # Keyframe pose at creation (immutable): the per-frame trajectory
         # was recorded against these; finalize() corrects it by the total
         # keyframe motion since creation.
@@ -638,7 +636,6 @@ class SlamPipeline:
                                         host["kf_msk"][k]))
             self.keyframe_times.append(int(kf_times[k]))
             self._kf_map_pose.append((sq, st3))
-            self._kf_integrated_via.append("batch")
             self._kf_pose_at_creation.append((sq.copy(), st3.copy()))
             if k > 0:
                 self.graph.add_edge(k - 1, k, host["rel_q"][k - 1],
@@ -913,16 +910,8 @@ class SlamPipeline:
             l_pos = out.l_pos[:g.n_landmarks].cpu().numpy()
         g.update_from(q, t, l_pos)
 
-    def _integrate_scan(self, pts_world: np.ndarray, mask: np.ndarray,
-                        center: np.ndarray, map_obj=None,
-                        sign: float = 1.0) -> None:
-        """Scan → map integration (a multi-device session overrides it to
-        keep only its own tiles)."""
-        (map_obj or self.map).integrate_points(pts_world, mask,
-                                               center=center, sign=sign)
-
     def _tile_filter(self):
-        """Tile-ownership predicate for batched map integration (None =
+        """Tile-ownership predicate of every map integration (None =
         keep everything; a multi-device session returns its own)."""
         return None
 
@@ -1094,10 +1083,11 @@ class SlamPipeline:
 
         # Integrate the corrected scan into the map.
         with timers.stage("frame_prep"):
-            pts_world = se3.apply(T_est, torch.as_tensor(pts)).numpy()
             est_q, est_t = _np(T_est.q), _np(T_est.t)
         with timers.stage("map_update"):
-            self._integrate_scan(pts_world, mask, est_t)
+            self.map.integrate_scans_batch(
+                pts[None], mask[None], est_q[None], est_t[None],
+                tile_filter=self._tile_filter())
 
         with timers.stage("frame_store"):
             self.frames.add_frame(start_us, frame, carpose_q=est_q,
@@ -1141,10 +1131,9 @@ class SlamPipeline:
                 self.keyframe_descs.append(_np(sc_mod.scan_context(
                     pts_dev, mask_dev)))
         self.keyframe_times.append(start_us)
-        # The pose (and path) this keyframe's scan entered the map with,
-        # in _handle_frame just before: the downdate anchor.
+        # The pose this keyframe's scan entered the map with, in
+        # _handle_frame just before: the downdate anchor.
         self._kf_map_pose.append((est_q, est_t))
-        self._kf_integrated_via.append("stream")
         self._kf_pose_at_creation.append((est_q.copy(), est_t.copy()))
         if k > 0:
             rel = se3.relative(_host_pose(g.q[k - 1], g.t[k - 1]), T_est)
@@ -1247,10 +1236,10 @@ class SlamPipeline:
         """Incremental voxel downdating: for each keyframe whose optimized
         pose moved more than `move_threshold_m` (or turned) since its scan
         was integrated, subtract the scan's voxel statistics at the old
-        pose and re-add them at the new one, through the path it entered
-        by (`_kf_integrated_via`), so the subtraction is the exact inverse
-        of the addition.  Non-keyframe frames stay as integrated.  Returns
-        the number of keyframes re-integrated."""
+        pose and re-add them at the new one; the scan is built at the old
+        pose as it was when it entered, so the subtraction is the exact
+        inverse of the addition.  Non-keyframe frames stay as integrated.
+        Returns the number of keyframes re-integrated."""
         with self.timers.stage("map_reintegrate"):
             return self._reintegrate_moved(move_threshold_m)
 
@@ -1264,36 +1253,17 @@ class SlamPipeline:
                     > 0.999995)]
         if not moved_k:
             return 0
-
-        def via(k):  # untracked keyframes default to the stream path
-            return (self._kf_integrated_via[k]
-                    if k < len(self._kf_integrated_via) else "stream")
-        stream_k = [k for k in moved_k if via(k) == "stream"]
-        batch_k = [k for k in moved_k if via(k) != "stream"]
-        # Stream-integrated scans: replay se3.apply + integrate_points at
-        # the old pose with sign −1, then re-add at the new pose.
-        for k in stream_k:
-            pts_k, msk_k = self.keyframe_scans[k]
-            old_q, old_t = self._kf_map_pose[k]
-            pw_old = se3.apply(_host_pose(old_q, old_t),
-                               torch.as_tensor(pts_k)).numpy()
-            self._integrate_scan(pw_old, msk_k, old_t, sign=-1.0)
-            pw_new = se3.apply(_host_pose(q[k], t[k]),
-                               torch.as_tensor(pts_k)).numpy()
-            self._integrate_scan(pw_new, msk_k, t[k])
-        if batch_k:
-            # One batched pass: every moved scan at its old pose (sign −1),
-            # then at its new pose.
-            pts = np.stack([self.keyframe_scans[k][0] for k in batch_k] * 2)
-            msk = np.stack([self.keyframe_scans[k][1] for k in batch_k] * 2)
-            qs = np.stack([self._kf_map_pose[k][0] for k in batch_k]
-                          + [q[k] for k in batch_k])
-            ts = np.stack([self._kf_map_pose[k][1] for k in batch_k]
-                          + [t[k] for k in batch_k])
-            signs = np.concatenate([-np.ones(len(batch_k)),
-                                    np.ones(len(batch_k))])
-            self.map.integrate_scans_batch(pts, msk, qs, ts, signs=signs,
-                                           tile_filter=self._tile_filter())
+        # Keyframe by keyframe, the scan at its old pose with sign −1,
+        # then at its new pose: the order of a downdate and re-add each.
+        scans = [self.keyframe_scans[k] for k in moved_k for _ in (0, 1)]
+        poses = [p for k in moved_k
+                 for p in (self._kf_map_pose[k], (q[k], t[k]))]
+        self.map.integrate_scans_batch(
+            np.stack([p for p, _ in scans]), np.stack([m for _, m in scans]),
+            np.stack([pq for pq, _ in poses]),
+            np.stack([pt for _, pt in poses]),
+            signs=np.tile([-1.0, 1.0], len(moved_k)),
+            tile_filter=self._tile_filter())
         for k in moved_k:
             self._kf_map_pose[k] = (q[k].copy(), t[k].copy())
         return len(moved_k)
@@ -1314,7 +1284,6 @@ class SlamPipeline:
                     q[:K], t[:K], tile_filter=self._tile_filter())
                 for k in range(min(K, len(self._kf_map_pose))):
                     self._kf_map_pose[k] = (q[k].copy(), t[k].copy())
-                    self._kf_integrated_via[k] = "batch"
             self.map = fresh
 
     def _correct_trajectory(self, old_q: np.ndarray, old_t: np.ndarray
